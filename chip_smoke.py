@@ -13,15 +13,26 @@
    ten pyramid widths 2048..50 with the port, writes it as a project tree,
    and runs the port's derp_cli on it with default solver flags;
 5. checks that every kernel was launched by that run and that the level-0
-   disparity is within 5% median relative error of the ground truth.
+   disparity is within 5% median relative error of the ground truth;
+6. holds K4 (warp_sample) against its twin on the render gather of one
+   cubemap at face 1536: the 16 cameras' level-0 colors and derp_cli's
+   disparity (with a NaN patch) sampled at the coordinates render_view
+   computes for the cube at camera 0's position; times both;
+7. runs the port's compute_rephotography_errors on derp_cli's output (16
+   cameras, 2048x1536, cubemap faces of 1536), checks that K4 was launched
+   and that the TOTAL average MSSIM meets the reference's bar (90.0 - 0.05);
+8. runs the port's simple_mesh_renderer eqrcolor and tbstereo at its
+   default 2048x1024 on the same output and checks that K4 was launched and
+   that the images are finite with non-trivial alpha coverage.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --profile DIR
 
-also runs the derp_cli phase under torch.profiler and writes its kernel
-table (device and host time by operator) to DIR/derp_profile.txt.
+also runs the derp_cli and rephotography phases under torch.profiler and
+writes their kernel tables (device and host time by operator) to
+DIR/derp_profile.txt and DIR/rephoto_profile.txt.
 """
 
 from __future__ import annotations
@@ -235,6 +246,117 @@ def check_kernels(dev):
     return results
 
 
+def check_warp_sample(root: str, out_root: str, dev):
+    """K4 against its twin at the render gather's shapes: (16, 4, 1536, 2048)
+    planar stack of colors + disparity (NaN taps), coords of a face-1536
+    cubemap seen from camera 0 (16 x 6 x 1536^2 points). Built with
+    -fmad=false and the twin's lerp order, so expected bit-identical."""
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import compute_rephotography_errors as cre
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+    from facebook360_dep_tpu_torch.render import dibr
+
+    rig = cam.load_rig(os.path.join(root, "rigs/rig_calibrated.json"))
+    colors, disps = cre.load_rig_images(os.path.join(root, "video/color_levels/level_0"),
+                                        os.path.join(out_root, "disparity_levels/level_0"), rig, "000000")
+    colors, disps = torch.from_numpy(colors).to(dev), torch.from_numpy(disps).to(dev)
+    disps[:, 700:760, 900:1000] = float("nan")
+    cams = cam.normalize_rig(rig).cameras.to(dev, torch.float32)
+    face = colors.shape[1]
+    target = dibr.Target("cube", face_size=face)
+    center = cams.position[0]
+    world = dibr.target_points(dibr.splat_zbuffer(cams, disps, center, target), center, target)
+    coords, _ = dibr.gather_coords(cams, world, colors.shape[1:3])
+    src = dibr.planar_stack(colors, disps)
+    del world, colors, disps
+    s_k, v_k = wc.warp_sample_planar(src, coords)
+    s_p, v_p = wc.warp_sample_planar_plain(src, coords)
+    torch.cuda.synchronize()
+    log(f"K4 warp_sample C=4 ({src.shape[0]} sources {src.shape[3]}x{src.shape[2]} -> cube face {face}, "
+        f"{coords.shape[1] * coords.shape[2]} points each):")
+    same_valid = torch.equal(v_k, v_p)
+    same_nan = torch.equal(torch.isnan(s_k), torch.isnan(s_p))
+    err = (s_k - s_p).abs().nan_to_num(0.0).max().item()
+    bit_identical = same_valid and same_nan and torch.equal(s_k.nan_to_num(-1.0), s_p.nan_to_num(-1.0))
+    log(f"  valid share {v_k.double().mean().item():.4f}, NaN samples {torch.isnan(s_k).sum().item()}; "
+        f"same valid mask {same_valid}, same NaN positions {same_nan}, max_abs_err {err:.3e}, "
+        f"bit-identical {bit_identical}")
+    if not (same_valid and same_nan and err <= 1e-6):
+        raise AssertionError("K4 warp_sample disagrees with its twin")
+    del s_k, s_p, v_k, v_p
+    ms = cuda_time_ms(lambda: wc.warp_sample_planar(src, coords), 20)
+    pms = cuda_time_ms(lambda: wc.warp_sample_planar_plain(src, coords), 3, warmup=1)
+    log(f"  time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bit_identical=bit_identical)
+
+
+def run_rephotography(root: str, out_root: str, profile_dir: str):
+    """The port's compute_rephotography_errors on derp_cli's level 0, as
+    tests/test_metrics_contract.py:92-98 runs it: TOTAL MSSIM against the
+    reference's bar, with the K4 launches, wall time and peak memory."""
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import compute_rephotography_errors as cre
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    torch.cuda.reset_peak_memory_stats()
+    wc.reset_launch_counts()
+    t = time.time()
+    with profiled(profile_dir, "rephoto"):
+        result = cre.main([
+            "--color", os.path.join(root, "video/color_levels/level_0"),
+            "--disparity", os.path.join(out_root, "disparity_levels/level_0"),
+            "--rig", os.path.join(root, "rigs/rig_calibrated.json"),
+            "--output", os.path.join(root, "rephoto"), "--first", "000000", "--last", "000000",
+        ])
+        torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches = dict(wc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for cam_id, rgb in result["frames"]["000000"]["cameras"].items():
+        log(f"  {cam_id} MSSIM: " + ", ".join(f"{c} {100 * v:.2f}%" for c, v in zip("RGB", rgb)))
+    mssim = 100 * sum(result["total"]) / 3
+    log("rephotography: TOTAL average MSSIM " + ", ".join(f"{c} {100 * v:.2f}%" for c, v in zip("RGB", result["total"]))
+        + f" (mean {mssim:.3f}, bar 89.95); {seconds:.2f} s for {len(result['frames']['000000']['cameras'])} "
+        f"cameras, peak device memory {peak:.2f} GiB; kernel launches {launches}")
+    if launches["warp_sample"] <= 0:
+        raise AssertionError("K4 warp_sample never launched by the rephotography run")
+    if not mssim >= 90.0 - 0.05:
+        raise AssertionError(f"rephotography MSSIM {mssim} below the reference's 89.95")
+    return dict(rephoto_mssim=mssim, rephoto_s=seconds, rephoto_peak_gib=peak), launches["warp_sample"]
+
+
+def run_renderer(root: str, out_root: str, fmt: str):
+    """The port's simple_mesh_renderer at its default 2048x1024 on derp_cli's
+    level 0; the image must be finite with non-trivial alpha coverage."""
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import simple_mesh_renderer as smr
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    wc.reset_launch_counts()
+    t = time.time()
+    records = smr.main([
+        "--rig", os.path.join(root, "rigs/rig_calibrated.json"),
+        "--color", os.path.join(root, "video/color_levels/level_0"),
+        "--disparity", os.path.join(out_root, "disparity_levels/level_0"),
+        "--output", os.path.join(root, "render", fmt), "--format", fmt,
+    ])
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    rec = records[0]
+    log(f"simple_mesh_renderer {fmt}: {seconds:.2f} s, image {rec['shape']}, alpha coverage "
+        f"{rec['coverage']:.4f}, finite {rec['finite']}, K4 launches {wc.LAUNCHES['warp_sample']}")
+    if wc.LAUNCHES["warp_sample"] <= 0:
+        raise AssertionError(f"K4 warp_sample never launched by simple_mesh_renderer {fmt}")
+    if not rec["finite"] or not 0.1 < rec["coverage"]:
+        raise AssertionError(f"simple_mesh_renderer {fmt}: finite {rec['finite']}, coverage {rec['coverage']}")
+    return {f"{fmt}_s": seconds, f"{fmt}_coverage": rec["coverage"]}
+
+
 def write_project(root: str, dev, widths=WIDTHS):
     """The 16-camera sphere scene rendered at every pyramid width, as a
     project tree (color_levels/level_N/<cam>/000000.png + rig). Returns the
@@ -290,10 +412,12 @@ def check_level0(out_root: str, rig, gt):
 
 
 @contextlib.contextmanager
-def profiled(out_dir):
+def profiled(out_dir, name):
     """torch.profiler over the block when ``out_dir`` is set; writes the
-    operator table sorted by device time and prints its head."""
+    operator table sorted by device time to DIR/<name>_profile.txt and
+    prints its head."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not out_dir:
@@ -303,9 +427,11 @@ def profiled(out_dir):
         yield
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "derp_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    # device-side events only: an operator's row repeats its kernels' time
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     log(f"profile: device busy {busy_us / 1e6:.3f} s (sum of kernel self time)")
     log("\n".join(table.splitlines()[:30]))
 
@@ -314,7 +440,8 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    parser.add_argument("--profile", default="", help="profile the derp_cli run; write the table here")
+    parser.add_argument("--profile", default="",
+                        help="profile the derp_cli and rephotography runs; write the tables here")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -352,7 +479,7 @@ def main(argv=None) -> int:
         out_root = os.path.join(root, "out")
         wc.reset_launch_counts()
         t = time.time()
-        with profiled(args.profile):
+        with profiled(args.profile, "derp"):
             est = derp_cli.main([
                 "--input_root", root, "--output_root", out_root,
                 "--min_depth_m", "1", "--max_depth_m", "100", "--resolution", "2048",
@@ -366,17 +493,26 @@ def main(argv=None) -> int:
             w, h = est.level_sizes[level]
             log(f"  level {level} ({w}x{h}): {est.level_seconds[level]:.3f} s")
         log(f"kernel launches in the derp_cli run: {launches}")
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched by the main path: {missing}")
         med, coverage, rmse = check_level0(out_root, rig, gt0)
 
+        t = time.time()
+        checks["warp_sample"] = check_warp_sample(root, out_root, dev)
+        log(f"K4 check: {time.time() - t:.1f} s")
+        render, k4_launches = run_rephotography(root, out_root, args.profile)
+        for fmt in ("eqrcolor", "tbstereo"):
+            render.update(run_renderer(root, out_root, fmt))
+        launches["warp_sample"] = k4_launches
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
-                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse}))
+                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
-               "cost_fused": ("cost_fused.cu", 997)}
+               "cost_fused": ("cost_fused.cu", 997),
+               "warp_sample": ("warp_sample.cu", 153)}
     kernels = []
     for name, (src, line) in sources.items():
         kernels.append(dict(name=name, route="cuda", source=f"{CSRC}/{src}",

@@ -233,6 +233,13 @@ def ray_dir(cam: Camera, pix: torch.Tensor) -> torch.Tensor:
     return _rotate(_vec_field(cam, rot_t, unit), unit)
 
 
+def rig_point(cam: Camera, pix: torch.Tensor, depth) -> torch.Tensor:
+    """Point along the pixel ray at ``depth`` (rig space). util/Camera.h:141-143."""
+    ray = ray_dir(cam, pix)
+    d = torch.as_tensor(depth, dtype=ray.dtype, device=ray.device)
+    return _vec_field(cam, cam.position, ray) + ray * d[..., None]
+
+
 def is_outside_fov(cam: Camera, rig_pts: torch.Tensor) -> torch.Tensor:
     """FOV cone test. util/Camera.h:154-164 (general form covers cosFov == 0)."""
     v = rig_pts - _vec_field(cam, cam.position, rig_pts)
@@ -300,6 +307,10 @@ def normalize(cam: Camera) -> Camera:
         focal=cam.focal / cam.resolution,
         resolution=torch.ones_like(cam.resolution),
     )
+
+
+def is_normalized(cam: Camera) -> bool:
+    return bool(torch.all(cam.resolution == 1.0))
 
 
 def camera_from_numpy(fields, device=None, dtype=None) -> Camera:

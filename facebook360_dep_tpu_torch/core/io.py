@@ -111,6 +111,25 @@ def write_color(path, img: np.ndarray, bit_depth: int = 8) -> None:
     write_png(path, out.astype(np.uint8 if bit_depth == 8 else np.uint16))
 
 
+def resize_image(img: np.ndarray, size_wh, interpolation: str = "area") -> np.ndarray:
+    """cv2.resize(img, size_wh, interpolation=INTER_AREA) of a float image
+    (H, W) or (H, W, C) whose size shrinks by an integer factor on each axis:
+    there INTER_AREA is the mean of each factor_y x factor_x box. Any other
+    mode, dtype or size ratio raises NotImplementedError."""
+    img = np.asarray(img)
+    w_out, h_out = (int(v) for v in size_wh)
+    h, w = img.shape[:2]
+    fy, fx = (h // h_out, w // w_out) if h_out and w_out else (0, 0)
+    if (interpolation != "area" or img.dtype.kind != "f" or fy < 1 or fx < 1
+            or fy * h_out != h or fx * w_out != w):
+        raise NotImplementedError(
+            f"resize_image: mode {interpolation!r} ({img.dtype}) from {w}x{h} to {w_out}x{h_out}; "
+            "only 'area' on float images by integer factors is ported")
+    boxes = img.reshape((h_out, fy, w_out, fx) + img.shape[2:]).astype(np.float32)
+    out = (boxes.sum(axis=(1, 3)) * np.float32(1.0 / (fx * fy))).astype(img.dtype)
+    return out[..., 0] if out.ndim == 3 and out.shape[2] == 1 else out  # cv2 drops a single channel
+
+
 def frame_name(frame: int, pad: int = 6) -> str:
     """Zero-padded frame naming (image_util::intToStringZeroPad)."""
     return str(int(frame)).zfill(pad)

@@ -18,7 +18,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("project_sample.cu", "ssd_combine.cu", "cost_fused.cu")
+SOURCES = ("project_sample.cu", "ssd_combine.cu", "cost_fused.cu", "warp_sample.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: products round where PyTorch rounds them (see common.cuh)
 NVCC_FLAGS = (
@@ -33,6 +33,7 @@ _SIGNATURES = {
     "fdt_project_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "fdt_ssd_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "fdt_cost_fused": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "fdt_warp_sample": (_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

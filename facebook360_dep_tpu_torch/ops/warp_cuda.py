@@ -1,14 +1,18 @@
-"""The plane-sweep CUDA kernels, their ctypes wrappers and plain twins.
+"""The CUDA sampling kernels, their ctypes wrappers and plain twins.
 
-Port of ``facebook360_dep_tpu/ops/warp_pallas.py``'s main-path kernels:
+Port of ``facebook360_dep_tpu/ops/warp_pallas.py``'s kernels:
 
-==================  ==========================================  ================
-wrapper             replaces (TPU kernel)                       source
-==================  ==========================================  ================
-``project_sample``  ``project_sample_planar_v4``                ``csrc/project_sample.cu``
-``ssd_combine``     ``ssd_combine``                             ``csrc/ssd_combine.cu``
-``cost_fused``      ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
-==================  ==========================================  ================
+======================  ==========================================  ==========================
+wrapper                 replaces (TPU kernel)                       source
+======================  ==========================================  ==========================
+``project_sample``      ``project_sample_planar_v4``                ``csrc/project_sample.cu``
+``ssd_combine``         ``ssd_combine``                             ``csrc/ssd_combine.cu``
+``cost_fused``          ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
+``warp_sample_planar``  ``warp_sample_planar``                      ``csrc/warp_sample.cu``
+======================  ==========================================  ==========================
+
+The first three carry the depth solve; ``warp_sample_planar`` carries the
+render gather (``render/dibr.py::render_view``).
 
 Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch twin on CPU tensors; there is no fallback from one to the other.
@@ -39,7 +43,7 @@ PARAM_RES = 22       # 2: resolution (normalized rigs: 1, 1)
 PARAM_SIZE = 24
 
 # kernel launches since the last reset_launch_counts()
-LAUNCHES = {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0}
+LAUNCHES = {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0}
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +108,18 @@ def cost_fused_plain(src_planar, params, dst_position, disparity, rays, dst_plan
     """K3's twin: K1's twin followed by K2's twin."""
     sampled, valid = project_sample_plain(src_planar, params, dst_position, disparity, rays)
     return ssd_combine_plain(sampled, valid, dst_planar, variance, exclude_idx)
+
+
+def warp_sample_planar_plain(src_planar, coords):
+    """K4's twin: sampling.bilinear_sample of each source at its coords.
+    valid = finite coords; sampled is 0 where not valid and NaN where a tap
+    of the source is NaN. Returns sampled (N, C, H, W), valid (N, H, W) bool."""
+    valid = torch.isfinite(coords).all(dim=-1)
+    sampled = torch.stack([
+        sampling.bilinear_sample(src_planar[i].permute(1, 2, 0), coords[i]).permute(2, 0, 1)
+        for i in range(src_planar.shape[0])
+    ])
+    return torch.where(valid[:, None], sampled, 0.0), valid
 
 
 # ---------------------------------------------------------------------------
@@ -207,3 +223,42 @@ def cost_fused(src_planar, params, dst_position, disparity, rays, dst_planar, va
                 disparity.data_ptr(), rays.data_ptr(), dst_planar.data_ptr(), variance.data_ptr(),
                 h, w, int(exclude_idx), cost.data_ptr(), conf.data_ptr())
     return cost, conf
+
+
+def warp_sample_planar(src_planar, coords):
+    """K4: multi-source bilinear sampling at caller-given coords, one launch.
+    src_planar (N, C, Hs, Ws) f32 (C in 1..4), coords (N, H, W, 2) f32 as
+    (x, y) pixel-center coords -> sampled (N, C, H, W) (0 where not valid),
+    valid (N, H, W) bool (finite coords)."""
+    if not src_planar.is_cuda:
+        return warp_sample_planar_plain(src_planar, coords)
+
+    n, c, hs, ws = src_planar.shape
+    h, w = coords.shape[1:3]
+    dev = src_planar.device
+    if not 1 <= c <= 4:
+        raise ValueError(f"warp_sample_planar: C={c}, expected 1..4")
+    _check("src_planar", src_planar, dev, (n, c, hs, ws))
+    _check("coords", coords, dev, (n, h, w, 2))
+    sampled = torch.empty((n, c, h, w), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, h, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _launch("warp_sample", _build.load().fdt_warp_sample,
+                src_planar.data_ptr(), n, c, hs, ws, coords.data_ptr(), h, w,
+                sampled.data_ptr(), valid.data_ptr())
+    return sampled, valid
+
+
+def warp_sample_multi(src_imgs_t, coords):
+    """Multi-source sampling from the (N, C, H, W) planar stack (K4)."""
+    return warp_sample_planar(src_imgs_t, coords)
+
+
+def warp_sample(src_img, coords):
+    """Single-source convenience wrapper over any (H, W): an (Hs, Ws, C) or
+    (Hs, Ws) image and (H, W, 2) coords -> interleaved (H, W, C) samples and
+    valid (H, W) bool (K4 on CUDA tensors)."""
+    if src_img.ndim == 2:
+        src_img = src_img[..., None]
+    out, valid = warp_sample_planar(src_img.permute(2, 0, 1)[None].contiguous(), coords[None].contiguous())
+    return out[0].permute(1, 2, 0), valid[0]

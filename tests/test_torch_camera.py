@@ -145,3 +145,24 @@ def test_destination_filtering_and_index_map():
     np.testing.assert_array_equal(td.cameras.position.numpy(), np.asarray(jd.cameras.position))
     np.testing.assert_array_equal(tcam.map_src_to_dst_indexes(trig, td), jcam.map_src_to_dst_indexes(jrig, jd))
     assert tcam.filter_destinations(trig, "") is trig
+
+
+@pytest.mark.parametrize("type_name", TYPES)
+def test_rig_point_and_is_normalized(type_name):
+    """rig_point = position + ray * depth, per camera and batched over
+    cameras (scalar and per-pixel depths), to the ray tolerance times depth."""
+    jc, tc = _cams(type_name)
+    jn = jcam.normalize(jc)
+    tn = tcam.normalize(tc)
+    pix = f32(np.random.RandomState(7).uniform(0.05, 0.95, (5, 6, 2)))
+    depth = f32(np.random.RandomState(8).uniform(0.5, 20.0, (3, 5, 6)))
+    want = np.stack([np.asarray(jcam.rig_point(jax.tree.map(lambda a: a[i], jn), jnp.asarray(pix), depth[i]))
+                     for i in range(3)])
+    got = tcam.rig_point(tn, tt(pix)[None], tt(depth)).numpy()
+    np.testing.assert_allclose(got, want, atol=RAY_ATOL * 20.0)
+    j0 = jax.tree.map(lambda a: a[0], jn)
+    np.testing.assert_allclose(tcam.rig_point(tn.index(0), tt(pix), 3.0).numpy(),
+                               np.asarray(jcam.rig_point(j0, jnp.asarray(pix), 3.0)), atol=RAY_ATOL * 3.0)
+    for j, t in ((jc, tc), (jn, tn), (j0, tn.index(0))):
+        assert tcam.is_normalized(t) is jcam.is_normalized(j)
+    assert not tcam.is_normalized(tc) and tcam.is_normalized(tn)

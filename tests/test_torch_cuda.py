@@ -13,7 +13,7 @@ import torch
 from facebook360_dep_tpu_torch.core import camera as tcam
 from facebook360_dep_tpu_torch.depth import pipeline, solver
 from facebook360_dep_tpu_torch.ops import warp_cuda as wc
-from facebook360_dep_tpu_torch.render import synthetic
+from facebook360_dep_tpu_torch.render import dibr, synthetic
 
 from torch_parity import ring_rig
 
@@ -89,7 +89,7 @@ def test_wrappers_validate_and_count(inputs):
     wc.reset_launch_counts()
     wc.project_sample(*_k1(cctx, disp))
     wc.project_sample_plain(*_k1(cctx, disp))
-    assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0}
+    assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0}
     with pytest.raises(ValueError, match="contiguous"):
         wc.project_sample(*_k1(cctx, disp.t().contiguous().t()))
     with pytest.raises(ValueError, match="dtype"):
@@ -99,3 +99,33 @@ def test_wrappers_validate_and_count(inputs):
     with pytest.raises(ValueError, match="C=4"):
         wc.project_sample(*_k1(cctx, disp, cctx.src_planar[:, :1].expand(-1, 4, -1, -1).contiguous()))
     assert wc.LAUNCHES["project_sample"] == 1
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_warp_sample_matches_twin(inputs, dev, channels):
+    """K4 at a cubemap render gather's coords: built with -fmad=false and
+    the twin's lerp order, bit-identical, NaN taps included; one launch."""
+    cctx, _, gt = inputs
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=8, resolution=(96, 72), mixed=True))
+    cams = rig.cameras.to(dev, torch.float32)
+    disp = torch.where(torch.isfinite(gt), gt, float("nan"))
+    disp[:, 10:14, 20:30] = float("nan")
+    target = dibr.Target("cube", face_size=48)
+    center = cams.position[0]
+    world = dibr.target_points(dibr.splat_zbuffer(cams, disp, center, target), center, target)
+    coords, _ = dibr.gather_coords(cams, world, (72, 96))
+    src = torch.cat([cctx.src_planar[:1].expand(8, -1, -1, -1), disp[:, None]], 1)[:, -channels:].contiguous()
+    wc.reset_launch_counts()
+    s_k, v_k = wc.warp_sample_planar(src, coords)
+    assert wc.LAUNCHES["warp_sample"] == 1
+    s_p, v_p = wc.warp_sample_planar_plain(src, coords)
+    torch.cuda.synchronize()
+    assert torch.equal(v_k, v_p) and v_k.any() and not v_k.all()
+    assert torch.equal(torch.isnan(s_k), torch.isnan(s_p)) and torch.isnan(s_k).any()
+    assert torch.equal(s_k.nan_to_num(-1.0), s_p.nan_to_num(-1.0))
+    out, valid = wc.warp_sample(src[0].permute(1, 2, 0), coords[0].contiguous())
+    assert torch.equal(out.permute(2, 0, 1).nan_to_num(-1.0), s_k[0].nan_to_num(-1.0))
+    with pytest.raises(ValueError, match="C=5"):
+        wc.warp_sample_planar(src[:, :1].expand(-1, 5, -1, -1).contiguous(), coords)
+    with pytest.raises(ValueError, match="contiguous"):
+        wc.warp_sample_planar(src, coords.transpose(1, 2))

@@ -120,3 +120,24 @@ def test_lanczos4_resize_matches_cv2(src_hw, dst_wh):
     got = sampling.resize_lanczos4(torch.from_numpy(d), dst_wh).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=5e-7, rtol=0)
+
+
+@pytest.mark.parametrize("src_hw,dst_wh,channels", [((60, 80), (40, 30), 3), ((48, 64), (16, 12), 3),
+                                                    ((36, 48), (48, 12), 1), ((30, 40), (40, 30), 0)])
+def test_resize_image_area_integer_factors_matches_jax(src_hw, dst_wh, channels):
+    """INTER_AREA by integer factors is a box mean; cv2 sums the box in
+    another order, so 1e-6 on values in [0, 1]."""
+    shape = src_hw + ((channels,) if channels else ())
+    img = np.random.RandomState(channels).rand(*shape).astype(np.float32)
+    want = jio.resize_image(img, dst_wh)
+    got = io.resize_image(img, dst_wh)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("size_wh,mode,dtype", [((30, 20), "area", np.float32), ((40, 30), "linear", np.float32),
+                                                ((160, 120), "area", np.float32), ((40, 30), "area", np.uint8)])
+def test_resize_image_other_cases_raise(size_wh, mode, dtype):
+    img = np.zeros((60, 80, 3), dtype)
+    with pytest.raises(NotImplementedError, match=f"{mode!r}.*80x60 to {size_wh[0]}x{size_wh[1]}"):
+        io.resize_image(img, size_wh, mode)
