@@ -23,16 +23,29 @@
    and that the TOTAL average MSSIM meets the reference's bar (90.0 - 0.05);
 8. runs the port's simple_mesh_renderer eqrcolor and tbstereo at its
    default 2048x1024 on the same output and checks that K4 was launched and
-   that the images are finite with non-trivial alpha coverage.
+   that the images are finite with non-trivial alpha coverage;
+9. runs the foreground/background chain at full width through each CLI's
+   main(), in the reference's stage order: a static background (the
+   sphere) and three frames with a moving textured disk in front of it,
+   written at 2048x1536; resize_images of the background, derp_cli on it,
+   resize_images of the frames, generate_foreground_masks, resize_images
+   --threshold 0.5 of the masks, derp_cli --use_foreground_masks over the
+   background's solve, temporal_bilateral_filter at level 0, upsample_disparity
+   from level 1 to 2048 with color, masks and background, and an eqrcolor
+   export of the filtered frame 000001. It checks that K1-K3 were launched
+   by both solves and K4 by the export, the masks' IoU against the disk's
+   true coverage, and the level-0, in-disk, filtered and upsampled median
+   relative errors against the composited truth (bar 0.05).
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --profile DIR
 
-also runs the derp_cli and rephotography phases under torch.profiler and
-writes their kernel tables (device and host time by operator) to
-DIR/derp_profile.txt and DIR/rephoto_profile.txt.
+also runs the derp_cli and rephotography phases and the chain's foreground
+solve under torch.profiler and writes their kernel tables (device and host
+time by operator) to DIR/derp_profile.txt, DIR/rephoto_profile.txt and
+DIR/derp_foreground_profile.txt.
 """
 
 from __future__ import annotations
@@ -388,27 +401,237 @@ def check_level0(out_root: str, rig, gt):
 
     from facebook360_dep_tpu_torch.core import imagetypes, io
 
-    rels, errs, gts, finite = [], [], [], []
-    for i, cam_id in enumerate(rig.ids):
-        disp = io.read_disparity(imagetypes.gen_filename(out_root, "disparity_levels", 0, cam_id, "000000", "pfm"))
-        if disp.shape != gt[i].shape:
-            raise AssertionError(f"{cam_id}: level-0 map {disp.shape}, expected {gt[i].shape}")
-        ok = np.isfinite(disp)
-        finite.append(ok.mean())
-        m = np.zeros(disp.shape, bool)
-        m[6:-6, 6:-6] = True
-        v = ok & m
-        rels.append(np.abs(disp[v] - gt[i][v]) / gt[i][v])
-        errs.append(disp[ok] - gt[i][ok])
-        gts.append(gt[i][ok])
-    med = float(np.median(np.concatenate(rels)))
-    e, g = np.concatenate(errs), np.concatenate(gts)
-    rmse = float(np.sqrt(np.mean(e * e)) / np.mean(g))
+    disp = np.stack([io.read_disparity(imagetypes.gen_filename(out_root, "disparity_levels", 0, cam_id,
+                                                                "000000", "pfm")) for cam_id in rig.ids])
+    if disp.shape != gt.shape:
+        raise AssertionError(f"level-0 maps {disp.shape}, expected {gt.shape}")
+    med, coverage = relative_error(disp, gt)
+    ok = np.isfinite(disp)
+    rmse = float(np.sqrt(np.mean((disp[ok] - gt[ok]) ** 2)) / np.mean(gt[ok]))
     log(f"level 0: median relative disparity error {med:.5f} (bar 0.05), "
-        f"coverage {np.mean(finite):.4f}, covered relative RMSE {rmse:.5f}")
+        f"coverage {coverage:.4f}, covered relative RMSE {rmse:.5f}")
     if not np.isfinite(med) or med >= 0.05:
         raise AssertionError(f"level-0 median relative error {med}")
-    return med, float(np.mean(finite)), rmse
+    return med, coverage, rmse
+
+
+# The foreground chain's scene: the sphere of radius 5 m as the static
+# background, and in frames 000000-000002 an opaque textured disk facing the
+# rig 2 m in front of it, moving 3 cm in x per frame.
+CHAIN_FRAMES = ("000000", "000001", "000002")
+DISK_RADIUS_M = 0.4
+DISK_DEPTH_M = 2.0
+DISK_STEP_M = 0.03
+DISK_SEED = 11  # the sphere's texture uses seed 7
+# mask IoU bar: a CPU run of this scene at 256x192 (four levels) measured
+# 0.929; full width has a thinner edge band relative to the disk (PERF.md)
+MASK_IOU_BAR = 0.90
+
+
+def render_disk_scene(rig, size_wh, disk_x, dev, with_disk=True):
+    """Colors (N, H, W, 3), disparity (N, H, W) and disk coverage (N, H, W)
+    of the sphere scene with the disk centered at (disk_x, 0, -2): each
+    pixel shows the nearer of the sphere and the disk (ray-plane hit within
+    the radius). Built from the port's camera rays and textures."""
+    import torch
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.ops import sampling
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    w, h = size_wh
+    cams = cam.normalize_rig(rig).cameras.to(dev, torch.float32)
+    grid = sampling.pixel_center_grid(h, w, device=dev) / torch.tensor([w, h], dtype=torch.float32, device=dev)
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    center = torch.tensor([disk_x, 0.0, -DISK_DEPTH_M], dtype=torch.float32, device=dev)
+    colors, disparity, coverage = [], [], []
+    for i in range(len(rig.ids)):
+        c = cams.index(i)
+        d = cam.ray_dir(c, grid)
+        t = synthetic.ray_sphere_depth(c.position, d, zero, 5.0)
+        hit = c.position + d * t[..., None]
+        color = synthetic.procedural_texture(hit / torch.sqrt(cam._dot3(hit, hit))[..., None], 7)
+        on = torch.zeros_like(t, dtype=torch.bool)
+        if with_disk:
+            t_disk = (center[2] - c.position[2]) / d[..., 2]  # the disk's plane z = -2 faces the rig
+            off = c.position + d * t_disk[..., None] - center
+            on = (t_disk > 0) & (off[..., 0] ** 2 + off[..., 1] ** 2 <= DISK_RADIUS_M ** 2) & (t_disk < t)
+            local = torch.stack([off[..., 0] / DISK_RADIUS_M, off[..., 1] / DISK_RADIUS_M,
+                                 torch.ones_like(t)], dim=-1)
+            tex = synthetic.procedural_texture(local / torch.sqrt(cam._dot3(local, local))[..., None], DISK_SEED)
+            color = torch.where(on[..., None], tex, color)
+            t = torch.where(on, t_disk, t)
+        colors.append(color)
+        disparity.append(1.0 / t)
+        coverage.append(on)
+    return torch.stack(colors), torch.stack(disparity), torch.stack(coverage)
+
+
+def relative_error(maps, truth, interior: int = 6):
+    """(median relative error over finite interior pixels, finite share)."""
+    import numpy as np
+
+    ok = np.isfinite(maps)
+    m = np.zeros(maps.shape, bool)
+    m[..., interior:-interior, interior:-interior] = True
+    v = ok & m
+    return float(np.median(np.abs(maps[v] - truth[v]) / truth[v])), float(ok.mean())
+
+
+def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
+    """The reference's flow for a shot over a static background
+    (precompute_resizes -> depth_estimation of the background ->
+    generate_foreground_masks -> resize of the masks -> background-
+    constrained depth_estimation -> temporal filter -> upsample -> export),
+    each stage through its CLI's main() in process. Returns (metrics,
+    {stage: kernel launches}). Any failed check raises. With
+    ``profile_dir`` the foreground solve runs under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import (derp_cli, generate_foreground_masks, resize_images,
+                                               simple_mesh_renderer, temporal_bilateral_filter,
+                                               upsample_disparity)
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.core import imagetypes, io
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    full = (widths[0], height(widths[0]))
+    rig = synthetic.make_test_rig(NUM_CAMERAS, full, ring_radius=0.3)
+    bg_root, shot = os.path.join(tmp, "background_shot"), os.path.join(tmp, "shot")
+    truth, cover = {}, {}
+    t = time.time()
+    for root in (bg_root, shot):
+        os.makedirs(os.path.join(root, "rigs"), exist_ok=True)
+        cam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
+    scenes = [("background_color", bg_root, "000000", None)]
+    scenes += [("color", shot, f, i * DISK_STEP_M) for i, f in enumerate(CHAIN_FRAMES)]
+    for image_type, root, frame, disk_x in scenes:
+        colors, disp, on = render_disk_scene(rig, full, disk_x or 0.0, dev, with_disk=disk_x is not None)
+        colors = colors.cpu().numpy()
+        if disk_x is not None:
+            truth[frame], cover[frame] = disp.cpu().numpy(), on.cpu().numpy()
+        for i, cam_id in enumerate(rig.ids):
+            d = imagetypes.image_dir(root, image_type, cam_id=cam_id)
+            os.makedirs(d, exist_ok=True)
+            io.write_color(os.path.join(d, frame + ".png"), colors[i], bit_depth=16)
+    seconds = {"scene": time.time() - t}
+    log(f"foreground chain: scene rendered and written ({NUM_CAMERAS} cameras, {full[0]}x{full[1]}, "
+        f"background + {len(CHAIN_FRAMES)} frames): {seconds['scene']:.1f} s")
+
+    rig_path = os.path.join(shot, "rigs/rig_calibrated.json")
+    frames = ["--first", CHAIN_FRAMES[0], "--last", CHAIN_FRAMES[-1]]
+    widths_arg = ["--widths", ",".join(str(w) for w in widths)]
+    depth = ["--min_depth_m", "1", "--max_depth_m", "100", "--resolution", str(widths[0])]
+    bg_out, fg_out = os.path.join(bg_root, "out"), os.path.join(shot, "out")
+    fg_masks = imagetypes.image_dir(shot, "foreground_masks")
+    fg_levels = imagetypes.image_dir(shot, "foreground_masks_levels")
+    stages = [
+        ("resize background", resize_images.main, [
+            "--rig", rig_path, "--color", imagetypes.image_dir(bg_root, "background_color"),
+            "--output", imagetypes.image_dir(bg_root, "background_color_levels")] + widths_arg),
+        ("derp background", derp_cli.main, [
+            "--input_root", bg_root, "--output_root", bg_out,
+            "--color", imagetypes.image_dir(bg_root, "background_color_levels")] + depth),
+        ("resize frames", resize_images.main, [
+            "--rig", rig_path, "--color", imagetypes.image_dir(shot, "color"),
+            "--output", imagetypes.image_dir(shot, "color_levels")] + frames + widths_arg),
+        ("foreground masks", generate_foreground_masks.main, [
+            "--rig", rig_path, "--background_color", imagetypes.image_dir(bg_root, "background_color"),
+            "--color", imagetypes.image_dir(shot, "color"), "--foreground_masks", fg_masks,
+            "--width", str(widths[0])] + frames),
+        ("resize masks", resize_images.main, [
+            "--rig", rig_path, "--color", fg_masks, "--output", fg_levels, "--threshold", "0.5"] + frames + widths_arg),
+        ("derp foreground", derp_cli.main, [
+            "--input_root", shot, "--output_root", fg_out, "--use_foreground_masks", "true",
+            "--background_disp", os.path.join(bg_out, "disparity_levels")] + frames + depth),
+        ("temporal filter", temporal_bilateral_filter.main, [
+            "--rig", rig_path, "--input_root", shot, "--output_root", fg_out, "--level", "0",
+            "--use_foreground_masks", "true"] + frames),
+        ("upsample", upsample_disparity.main, [
+            "--rig", rig_path, "--disparity", os.path.join(fg_out, "disparity_levels/level_1"),
+            "--output", os.path.join(fg_out, "disparity_upsample"), "--resolution", str(widths[0]),
+            "--color", imagetypes.image_dir(shot, "color"),
+            "--foreground_masks_in", os.path.join(fg_levels, "level_1"),
+            "--foreground_masks_out", os.path.join(fg_levels, "level_0"),
+            "--background_disp", os.path.join(bg_out, "disparity_levels/level_0"),
+            "--first", CHAIN_FRAMES[1], "--last", CHAIN_FRAMES[1]]),
+        ("export eqrcolor", simple_mesh_renderer.main, [
+            "--rig", rig_path, "--color", os.path.join(imagetypes.image_dir(shot, "color_levels"), "level_0"),
+            "--disparity", os.path.join(fg_out, "disparity_time_filtered_levels/level_0"),
+            "--output", os.path.join(fg_out, "eqrcolor"), "--format", "eqrcolor",
+            "--first", CHAIN_FRAMES[1], "--last", CHAIN_FRAMES[1]]),
+    ]
+    launches, results, peaks = {}, {}, {}
+    for name, entry, argv in stages:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        wc.reset_launch_counts()
+        t = time.time()
+        with profiled(profile_dir if name == "derp foreground" else "", "derp_foreground"):
+            results[name] = entry(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.time() - t
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+        launches[name] = dict(wc.LAUNCHES)
+        log(f"  stage {name}: {seconds[name]:.2f} s, peak device memory {peaks[name]:.2f} GiB, "
+            f"kernel launches {launches[name]}")
+    peak = max(peaks.values())
+    if dev.type == "cuda":  # on the CPU every wrapper runs its plain twin
+        for name, kernels in (("derp background", ("project_sample", "ssd_combine", "cost_fused")),
+                              ("derp foreground", ("project_sample", "ssd_combine", "cost_fused")),
+                              ("export eqrcolor", ("warp_sample",))):
+            missing = [k for k in kernels if launches[name][k] <= 0]
+            if missing:
+                raise AssertionError(f"foreground chain: {name} never launched {missing}")
+
+    # masks against the disk's true coverage at level 0
+    inter = union = 0
+    for frame in CHAIN_FRAMES:
+        for i, cam_id in enumerate(rig.ids):
+            m = io.read_mask(os.path.join(fg_levels, "level_0", cam_id, frame + ".png"))
+            inter += int((m & cover[frame][i]).sum())
+            union += int((m | cover[frame][i]).sum())
+    iou = inter / max(union, 1)
+
+    def maps(image_type, frame, level=0):
+        return np.stack([io.read_disparity(imagetypes.gen_filename(fg_out, image_type, level, cam_id, frame, "pfm"))
+                         for cam_id in rig.ids])
+
+    solve = np.stack([maps("disparity_levels", f) for f in CHAIN_FRAMES])
+    filtered = np.stack([maps("disparity_time_filtered_levels", f) for f in CHAIN_FRAMES])
+    upsampled = np.stack([io.read_disparity(os.path.join(fg_out, "disparity_upsample", cam_id,
+                                                         CHAIN_FRAMES[1] + ".pfm")) for cam_id in rig.ids])
+    gt = np.stack([truth[f] for f in CHAIN_FRAMES])
+    on_disk = np.stack([cover[f] for f in CHAIN_FRAMES])
+    err, coverage = relative_error(solve, gt)
+    disk_err = float(np.median(np.abs(solve - gt)[on_disk & np.isfinite(solve)] / gt[on_disk & np.isfinite(solve)]))
+    filt_err, _ = relative_error(filtered, gt)
+    up_err, _ = relative_error(upsampled, gt[1])
+    export = results["export eqrcolor"][0]
+    metrics = dict(chain_mask_iou=iou, chain_level0_median_rel_err=err, chain_level0_disk_median_rel_err=disk_err,
+                   chain_level0_coverage=coverage, chain_filtered_median_rel_err=filt_err,
+                   chain_upsampled_median_rel_err=up_err, chain_eqrcolor_coverage=export["coverage"],
+                   chain_peak_gib=peak, chain_seconds=seconds)
+    log(f"foreground chain: mask IoU {iou:.4f} (bar {MASK_IOU_BAR}); level 0 median relative error {err:.5f}, "
+        f"inside the disk {disk_err:.5f} (bar 0.05), coverage {coverage:.4f}; temporally filtered {filt_err:.5f}; "
+        f"upsampled from level 1 {up_err:.5f}; eqrcolor alpha coverage {export['coverage']:.4f}; "
+        f"peak device memory {peak:.2f} GiB; {sum(seconds.values()):.1f} s in all")
+    if not iou >= MASK_IOU_BAR:
+        raise AssertionError(f"foreground mask IoU {iou} below {MASK_IOU_BAR}")
+    for name, value in (("level 0", err), ("level 0 inside the disk", disk_err), ("filtered", filt_err),
+                        ("upsampled", up_err)):
+        if not value < 0.05:
+            raise AssertionError(f"foreground chain: {name} median relative error {value}")
+    if not (np.isfinite(filtered) | ~np.isfinite(solve)).all():
+        raise AssertionError("temporally filtered map is not finite where the solve's map is")
+    if not (np.isfinite(upsampled) | ~np.isfinite(solve[1])).all():
+        raise AssertionError("upsampled map is not finite where the level-0 solve is")
+    if not export["finite"] or not export["coverage"] > 0.1:
+        raise AssertionError(f"eqrcolor export of the filtered frame: {export}")
+    return metrics, launches
 
 
 @contextlib.contextmanager
@@ -425,12 +648,13 @@ def profiled(out_dir, name):
         return
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         yield
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
+    averages = prof.key_averages()  # slow on a long run's events: once
+    table = averages.table(sort_by="cuda_time_total", row_limit=60)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
     # device-side events only: an operator's row repeats its kernels' time
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in averages
                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     log(f"profile: device busy {busy_us / 1e6:.3f} s (sum of kernel self time)")
     log("\n".join(table.splitlines()[:30]))
@@ -441,7 +665,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument("--profile", default="",
-                        help="profile the derp_cli and rephotography runs; write the tables here")
+                        help="profile the derp_cli, rephotography and foreground-solve runs; write the tables here")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -506,17 +730,24 @@ def main(argv=None) -> int:
             render.update(run_renderer(root, out_root, fmt))
         launches["warp_sample"] = k4_launches
 
+    with tempfile.TemporaryDirectory(prefix="fdt_chain_") as tmp:
+        t = time.time()
+        chain, chain_launches = run_foreground_chain(tmp, dev, profile_dir=args.profile)
+        log(f"foreground chain: {time.time() - t:.1f} s; {smi}")
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
-                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render}))
+                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **chain}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
                "warp_sample": ("warp_sample.cu", 153)}
     kernels = []
     for name, (src, line) in sources.items():
+        chain_counts = {stage: counts[name] for stage, counts in chain_launches.items() if counts[name]}
         kernels.append(dict(name=name, route="cuda", source=f"{CSRC}/{src}",
-                            replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name]))
+                            replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name],
+                            chain_launches=chain_counts))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

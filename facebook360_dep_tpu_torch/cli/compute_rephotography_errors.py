@@ -34,16 +34,8 @@ def load_rig_images(color_dir, disp_dir, rig, frame):
     float32; colors are area-resized to the disparity size where they differ."""
     colors, disps = [], []
     for cam_id in rig.ids:
-        ddir = os.path.join(disp_dir, cam_id)
-        probe = io.first_image_in(ddir)
-        if not probe:
-            raise FileNotFoundError(f"no disparity in {ddir}")
-        disp = io.read_disparity(os.path.join(ddir, frame + os.path.splitext(probe)[1]))
-        cdir = os.path.join(color_dir, cam_id)
-        probe_c = io.first_image_in(cdir)
-        if not probe_c:
-            raise FileNotFoundError(f"no color in {cdir}")
-        color = io.read_color(os.path.join(cdir, frame + os.path.splitext(probe_c)[1]))[..., :3]
+        disp = io.read_disparity(io.frame_path(os.path.join(disp_dir, cam_id), frame))
+        color = io.read_color(io.frame_path(os.path.join(color_dir, cam_id), frame))[..., :3]
         if color.shape[:2] != disp.shape:
             color = io.resize_image(color, (disp.shape[1], disp.shape[0]))
         colors.append(color)

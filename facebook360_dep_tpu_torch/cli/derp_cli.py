@@ -1,11 +1,18 @@
 """DerpCLI equivalent: coarse-to-fine multi-view disparity estimation.
 
 Flag names mirror the reference binary (``depth_estimation/DerpCLI.cpp:40-67``)
-and the JAX package's CLI, including its three multi-host flags; a
-coordinator address raises until the multi-GPU path exists.
+and the JAX package's CLI, including its three multi-host flags. Every
+option runs: the background-constrained solve (``--use_foreground_masks``
+with ``--background_disp``), the debug images, plotMatches and the
+profiler trace. Only a coordinator address raises, until the multi-GPU
+path exists.
 
     python -m facebook360_dep_tpu_torch.cli.derp_cli --input_root <root> \
         --output_root <out> [--min_depth_m 1 --max_depth_m 100 --resolution 2048]
+    # a foreground solve over a static background's solve
+    python -m facebook360_dep_tpu_torch.cli.derp_cli --input_root <root> \
+        --output_root <out> --use_foreground_masks true \
+        --background_disp <background out>/disparity_levels --first 000000 --last 000002
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug_plot_match_y", type=int, default=-1)
     p.add_argument("--debug_plot_match_level", type=int, default=-1)
     p.add_argument("--threads", type=int, default=-1, help="accepted for flag parity (unused)")
-    p.add_argument("--profile_dir", default="", help="profiler trace directory (not ported yet)")
+    p.add_argument("--profile_dir", default="", help="torch.profiler chrome-trace directory")
     # multi-host flags (parallel/multihost.py in the JAX package)
     p.add_argument("--coordinator_address", default="",
                    help="host:port of process 0 for a multi-process run (not ported yet)")

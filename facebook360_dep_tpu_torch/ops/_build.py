@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc -> shared library -> ctypes).
 
-The sources have a plain C interface and include no PyTorch header, so one
-``nvcc`` call builds them in seconds. The library lands in
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` builds each in seconds: one ``nvcc -c`` per source, all started
+together, then one link. The library lands in
 ``csrc/_build/<hash of sources and flags>/`` at first use (that directory is
 git-ignored), so a fresh checkout builds on its first kernel launch and a
 rebuilt source never loads a stale library.
@@ -23,7 +24,7 @@ HEADERS = ("common.cuh",)
 # -fmad=false: products round where PyTorch rounds them (see common.cuh)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -61,15 +62,34 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        lib = os.path.join(tmp, "lib.so")
+        # one nvcc per source, all started together, each with its own log
+        jobs = []
+        for s, o in zip(SOURCES, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+            f = open(o + ".log", "w+")
+            jobs.append((cmd, f, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+        report, failed = [], []
+        for cmd, f, proc in jobs:
+            code = proc.wait()
+            f.seek(0)
+            report.append(" ".join(cmd) + "\n" + f.read())
+            f.close()
+            if code:
+                failed.append(report[-1])
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", lib, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode:
+                failed.append(report[-1])
+        (out.parent / "build.log").write_text("".join(report))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(failed)[-4000:])
+        os.replace(lib, out)
     return out
 
 

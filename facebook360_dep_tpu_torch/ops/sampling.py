@@ -101,6 +101,19 @@ def box_mean(img: torch.Tensor, radius: int) -> torch.Tensor:
     return box_sum(img, radius) / (k * k)
 
 
+def dilate_bool(mask: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """8-connected boolean dilation (sampling.py:113-116): the (2r+1)^2 box
+    count over reflect-101 borders is nonzero."""
+    return box_sum_planar(mask.to(torch.float32), radius) > 0
+
+
+def erode_bool(mask: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Boolean erosion (sampling.py:119-122): the whole (2r+1)^2 box is set,
+    with reflect-101 borders, so the image edge erodes like its mirror."""
+    k = 2 * radius + 1
+    return box_sum_planar(mask.to(torch.float32), radius) >= k * k
+
+
 def rgb_variance(img: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Per-channel windowed variance, combined with the reference's RGB
     weights. DerpUtil.cpp:214-237. img: (..., H, W, >=3) -> (..., H, W)."""
@@ -142,19 +155,20 @@ def _lanczos4_taps(src: int, dst: int):
 
 def resize_lanczos4(img: torch.Tensor, size_wh) -> torch.Tensor:
     """cv2.resize(img, size_wh, interpolation=INTER_LANCZOS4) for a float
-    (H, W) map: 8-tap separable, horizontal pass first, float32 sums in tap
-    order, clamp-to-edge borders."""
+    (H, W) map or (H, W, C) image: 8-tap separable, horizontal pass first,
+    float32 sums in tap order, clamp-to-edge borders."""
     w_out, h_out = int(size_wh[0]), int(size_wh[1])
-    h, w = img.shape
+    h, w = img.shape[:2]
     xi, xw = _lanczos4_taps(w, w_out)
     yi, yw = _lanczos4_taps(h, h_out)
     dev = img.device
-    xi, xw = torch.from_numpy(xi).to(dev), torch.from_numpy(xw).to(dev)
-    yi, yw = torch.from_numpy(yi).to(dev), torch.from_numpy(yw).to(dev)
+    chan = (1,) * (img.ndim - 2)
+    xi, xw = torch.from_numpy(xi).to(dev), torch.from_numpy(xw).to(dev).reshape((w_out, 8) + chan)
+    yi, yw = torch.from_numpy(yi).to(dev), torch.from_numpy(yw).to(dev).reshape((h_out, 1, 8) + chan)
     rows = img[:, xi[:, 0]] * xw[:, 0]
     for k in range(1, 8):
         rows = rows + img[:, xi[:, k]] * xw[:, k]
-    out = rows[yi[:, 0]] * yw[:, 0, None]
+    out = rows[yi[:, 0]] * yw[:, :, 0]
     for k in range(1, 8):
-        out = out + rows[yi[:, k]] * yw[:, k, None]
+        out = out + rows[yi[:, k]] * yw[:, :, k]
     return out

@@ -111,9 +111,10 @@ def test_parser_accepts_every_jax_option():
     assert want == got
 
 
-@pytest.mark.parametrize("flag", ["--use_foreground_masks=true", "--save_debug_images=true", "--profile_dir=x",
-                                  "--coordinator_address=localhost:1234"])
+@pytest.mark.parametrize("flag", ["--coordinator_address=localhost:1234"])
 def test_unported_options_raise(project, tmp_path, flag):
+    """Only the multi-GPU path is left to port (tests/test_torch_fg_depth.py
+    runs the foreground, debug and profiler options)."""
     from facebook360_dep_tpu_torch.cli import derp_cli as tcli
 
     root, _, _ = project

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from facebook360_dep_tpu.core import io as jio
-from facebook360_dep_tpu_torch.core import imagetypes, io, png
+from facebook360_dep_tpu_torch.core import exr, imagetypes, io, png
 from facebook360_dep_tpu_torch.ops import sampling
 
 import torch_parity  # noqa: F401  (thread count)
@@ -91,10 +91,14 @@ def test_disparity_png_and_color_match_jax_io(tmp_path):
 
 
 def test_exr_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        io.write_disparity(str(tmp_path / "d.exr"), np.zeros((2, 2), np.float32))
-    with pytest.raises(NotImplementedError):
-        io.read_disparity(str(tmp_path / "d.exr"))
+    """EXR disparity IO is ported except PIZ compression (the native codec):
+    a .exr map round-trips, PIZ raises (tests/test_torch_exr.py holds the
+    codec against the JAX package's)."""
+    d = np.arange(6, dtype=np.float32).reshape(2, 3)
+    io.write_disparity(str(tmp_path / "d.exr"), d)
+    np.testing.assert_array_equal(io.read_disparity(str(tmp_path / "d.exr")), d)
+    with pytest.raises(NotImplementedError, match="PIZ"):
+        exr.write_exr(str(tmp_path / "p.exr"), d, compression="piz")
 
 
 def test_pyramid_level_sizes_and_first_image(tmp_path):
@@ -125,19 +129,96 @@ def test_lanczos4_resize_matches_cv2(src_hw, dst_wh):
 @pytest.mark.parametrize("src_hw,dst_wh,channels", [((60, 80), (40, 30), 3), ((48, 64), (16, 12), 3),
                                                     ((36, 48), (48, 12), 1), ((30, 40), (40, 30), 0)])
 def test_resize_image_area_integer_factors_matches_jax(src_hw, dst_wh, channels):
-    """INTER_AREA by integer factors is a box mean; cv2 sums the box in
-    another order, so 1e-6 on values in [0, 1]."""
+    """INTER_AREA by integer factors is a box mean, summed in cv2's order
+    (four at a time; 2x2 boxes of one or four channels in its SIMD order):
+    identical to cv2."""
     shape = src_hw + ((channels,) if channels else ())
     img = np.random.RandomState(channels).rand(*shape).astype(np.float32)
     want = jio.resize_image(img, dst_wh)
     got = io.resize_image(img, dst_wh)
     assert got.shape == want.shape and got.dtype == want.dtype
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("size_wh,mode,dtype", [((30, 20), "area", np.float32), ((40, 30), "linear", np.float32),
-                                                ((160, 120), "area", np.float32), ((40, 30), "area", np.uint8)])
+@pytest.mark.parametrize("size_wh,mode,dtype", [((40, 30), "cubic", np.float32), ((40, 30), "linear", np.float32),
+                                                ((160, 120), "area", np.float32), ((40, 30), "area", np.uint8),
+                                                ((40, 30), "lanczos", np.uint16)])
 def test_resize_image_other_cases_raise(size_wh, mode, dtype):
     img = np.zeros((60, 80, 3), dtype)
     with pytest.raises(NotImplementedError, match=f"{mode!r}.*80x60 to {size_wh[0]}x{size_wh[1]}"):
         io.resize_image(img, size_wh, mode)
+
+
+def _pyramid_sizes(w0, h0):
+    """cli/resize_images.level_sizes of a (w0, h0) frame at the ten reference widths scaled by w0 / 2048."""
+    sizes = []
+    for w in imagetypes.PYRAMID_WIDTHS:
+        w = w * w0 // 2048
+        h = int(round(h0 * w / w0))
+        sizes.append((w, h + h % 2))
+    return sizes
+
+
+@pytest.mark.parametrize("size_wh", _pyramid_sizes(410, 308) + [(30, 20)])
+@pytest.mark.parametrize("channels", [0, 3])
+def test_resize_image_area_matches_cv2(size_wh, channels):
+    """INTER_AREA at the ten pyramid sizes of a reduced 410x308 frame
+    (factors 1, 2 and eight non-integer ones: 410 -> 40 is 10.25) and
+    60x40 -> 30x20: cv2's area tables and summation order, identical."""
+    w0, h0 = (60, 40) if size_wh == (30, 20) else (410, 308)
+    shape = (h0, w0) + ((channels,) if channels else ())
+    img = np.random.RandomState(channels + size_wh[0]).rand(*shape).astype(np.float32)
+    want = jio.resize_image(img, size_wh)
+    got = io.resize_image(img, size_wh)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("src_wh,dst_wh", [((56, 42), (80, 60)), ((80, 60), (56, 42)), ((30, 20), (31, 47)),
+                                           ((7, 5), (3, 2))])
+def test_resize_image_nearest_and_lanczos_match_cv2(src_wh, dst_wh):
+    """INTER_NEAREST picks cv2's pixels (identical, any dtype); INTER_LANCZOS4
+    of a 3-channel image within the 5e-7 of the Lanczos4 test above."""
+    rng = np.random.RandomState(src_wh[0])
+    img = rng.rand(src_wh[1], src_wh[0], 3).astype(np.float32)
+    np.testing.assert_array_equal(io.resize_image(img, dst_wh, "nearest"), jio.resize_image(img, dst_wh, "nearest"))
+    mask = rng.rand(src_wh[1], src_wh[0]) > 0.5
+    np.testing.assert_array_equal(io.resize_image(mask, dst_wh, "nearest"),
+                                  jio.resize_image(mask.astype(np.uint8), dst_wh, "nearest") > 0)
+    np.testing.assert_allclose(io.resize_image(img, dst_wh, "lanczos"), jio.resize_image(img, dst_wh, "lanczos"),
+                               atol=5e-7, rtol=0)
+
+
+def _mask_image(kind, rng):
+    """Values near the gray threshold: for PNG16 around 256, for PNG8 around 1."""
+    if kind == "png8":
+        return (rng.rand(40, 50) < 0.5).astype(np.uint8) * rng.randint(1, 256, (40, 50)).astype(np.uint8)
+    if kind == "png16":
+        return rng.randint(0, 600, (40, 50)).astype(np.uint16)
+    c = 4 if kind.startswith("rgba") else 3
+    top = 3 if kind.endswith("8") else 600
+    return rng.randint(0, top, (40, 50, c)).astype(np.uint8 if kind.endswith("8") else np.uint16)
+
+
+@pytest.mark.parametrize("kind", ["png8", "png16", "rgb8", "rgb16", "rgba16"])
+def test_read_mask_matches_cv2_grayscale(tmp_path, kind):
+    """read_mask is cv2.imread(IMREAD_GRAYSCALE) > 0 (the JAX package's
+    read_mask): PNG16 keeps the high byte, so 1..255 read false; RGB
+    becomes libpng's gray (truncated at 8 bits, rounded at 16). Files from
+    cv2 and from the port's encoder, identical booleans."""
+    img = _mask_image(kind, np.random.RandomState(len(kind)))
+    p = str(tmp_path / "m.png")
+    cv2.imwrite(p, _bgr(img) if img.ndim == 3 else img)
+    want = jio.read_mask(p)
+    assert 0.05 < want.mean() < 0.95
+    np.testing.assert_array_equal(io.read_mask(p), want)
+    io.write_png(p, img)
+    np.testing.assert_array_equal(io.read_mask(p), jio.read_mask(p))
+
+
+def test_write_mask_matches_jax(tmp_path):
+    m = np.random.RandomState(3).rand(9, 13) > 0.4
+    io.write_mask(str(tmp_path / "t.png"), m)
+    jio.write_mask(str(tmp_path / "j.png"), m)
+    assert np.array_equal(io.read_png(str(tmp_path / "t.png")), io.read_png(str(tmp_path / "j.png")))
+    np.testing.assert_array_equal(jio.read_mask(str(tmp_path / "t.png")), m)
