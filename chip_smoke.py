@@ -6,18 +6,29 @@
 1. refuses to run without CUDA; prints the card and its power limit;
 2. builds the CUDA kernels of facebook360_dep_tpu_torch/csrc from source;
 3. holds each kernel against its plain PyTorch twin on the card, on a
-   16-camera rig of all four camera types with distortion, at main-path
-   shapes (K1/K2 at 256x192, K3 at 2048x1536), and times both with CUDA
-   events;
+   16-camera rig of all four camera types with distortion, at every level
+   shape the solve launches it at (K1/K2 at the seven widths 256..50, K3
+   at 2048, 1024 and 512, through ops/cost.py::cost_for_disparity; K3 also
+   against K1 -> K2 bit for bit), and times each there two ways with CUDA
+   events: ``ms``, one launch from the host as the solve makes it, and
+   ``graph_ms``, the device time of one launch inside a CUDA graph, which
+   leaves the host's launch cost out; beside them the roofline bound from
+   the bytes and FLOPs of its shapes and the share bound / graph_ms; the
+   twins are timed at 256x192 and 2048x1536;
 4. renders the 16-camera sphere scene (the JAX bench's config 2 rig) at the
    ten pyramid widths 2048..50 with the port, writes it as a project tree,
    and runs the port's derp_cli on it with default solver flags;
 5. checks that every kernel was launched by that run and that the level-0
-   disparity is within 5% median relative error of the ground truth;
+   disparity is within 5% median relative error of the ground truth; the
+   launches it counted at each level shape complete the per-level table
+   (launches a solve, launches x (graph_ms - bound)), and every launch of
+   K1-K3 must fall on a shape of the table;
 6. holds K4 (warp_sample) against its twin on the render gather of one
    cubemap at face 1536: the 16 cameras' level-0 colors and derp_cli's
    disparity (with a NaN patch) sampled at the coordinates render_view
-   computes for the cube at camera 0's position; times both;
+   computes for the cube at camera 0's position; times both, and times
+   torch.nn.functional.grid_sample at the same points as the library
+   yardstick (timed only: its NaN taps differ);
 7. runs the port's compute_rephotography_errors on derp_cli's output (16
    cameras, 2048x1536, cubemap faces of 1536), checks that K4 was launched
    and that the TOTAL average MSSIM meets the reference's bar (90.0 - 0.05);
@@ -46,6 +57,15 @@ also runs the derp_cli and rephotography phases and the chain's foreground
 solve under torch.profiler and writes their kernel tables (device and host
 time by operator) to DIR/derp_profile.txt, DIR/rephoto_profile.txt and
 DIR/derp_foreground_profile.txt.
+
+    python3 chip_smoke.py --kernels-only
+
+builds the kernels and runs step 3 alone: the checks and the per-level
+times and bounds, without the launch counts of a solve, printed as one JSON
+object ``{"kernel_table": ...}`` (no ``ok`` line: the main path did not
+run). It reaches the kernels through the port's own functions only, so it
+also runs in a checkout of an earlier version for comparing two of them in
+one call (copy this script into the other one).
 """
 
 from __future__ import annotations
@@ -145,7 +165,7 @@ def main_path_inputs(width: int, dev):
     return cctx, disp, gt, fov
 
 
-def compare(name, kernel, plain, atol, rtol, max_outlier_frac):
+def compare(name, kernel, plain, atol, rtol, max_outlier_frac, quiet=False):
     """max |kernel - plain| over the compared values; raises if more than
     ``max_outlier_frac`` of them exceed atol + rtol * |plain|."""
     import torch
@@ -157,105 +177,246 @@ def compare(name, kernel, plain, atol, rtol, max_outlier_frac):
     bad = err > atol + rtol * plain.abs().nan_to_num(0.0)
     frac = bad.double().mean().item()
     max_err = err.max().item() if err.numel() else 0.0
-    log(f"  {name}: max_abs_err {max_err:.3e}, outside tol {frac:.2e} (allowed {max_outlier_frac:.0e})")
+    if not quiet or frac > max_outlier_frac:
+        log(f"  {name}: max_abs_err {max_err:.3e}, outside tol {frac:.2e} (allowed {max_outlier_frac:.0e})")
     if frac > max_outlier_frac:
         raise AssertionError(f"{name}: {frac:.2e} of values outside atol {atol} rtol {rtol}")
     return max_err
 
 
-def compare_validity(name, kernel, plain, max_frac):
+def compare_validity(name, kernel, plain, max_frac, quiet=False):
     frac = (kernel != plain).double().mean().item()
-    log(f"  {name}: validity differs at {frac:.2e} of pixels (allowed {max_frac:.0e})")
+    if not quiet or frac > max_frac:
+        log(f"  {name}: validity differs at {frac:.2e} of pixels (allowed {max_frac:.0e})")
     if frac > max_frac:
         raise AssertionError(f"{name}: validity differs at {frac:.2e} of pixels")
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+# the roofline of the kernel table.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+PARAM_BYTES = 24 * 4  # one packed source camera
+
+
+def k1_flops(c: int) -> int:
+    """FLOPs per (destination pixel, source) of K1: the projection (world
+    point, rotation, norms, distortion, focal, FOV cone and sensor tests)
+    ~70, then a bilinear lerp of 6 per channel."""
+    return 70 + 6 * c
+
+
+def k2_flops(c: int) -> int:
+    """FLOPs per (destination pixel, non-self source) of K2: differences,
+    squares and their channel sum 3C - 1, separable 3x3 boxes of C + 2
+    planes 4 each, the bias compensation 12 + 2C, the top-two fold 4."""
+    return (3 * c - 1) + 4 * (c + 2) + (12 + 2 * c) + 4
+
+
+def roofline(nbytes: float, flops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the FLOPs over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(n, c, hs, ws, h, w):
+    """(bytes, FLOPs) of one K1 call: the source stack, cameras, disparity
+    and rays read once, the samples and validity written once."""
+    hw = h * w
+    return 4 * n * c * hs * ws + n * PARAM_BYTES + 12 + 16 * hw + 4 * n * c * hw + n * hw, n * hw * k1_flops(c)
+
+
+def k2_work(n, c, h, w):
+    """The non-self sources' samples and validity (the kernel skips the
+    self source), dst and variance read once, cost and confidence written
+    once."""
+    hw = h * w
+    return 4 * (n - 1) * c * hw + (n - 1) * hw + 4 * c * hw + 4 * hw + 8 * hw, (n - 1) * hw * k2_flops(c)
+
+
+def k3_work(n, hs, ws, h, w):
+    """The non-self sources' three planes, cameras, disparity, rays, dst and
+    variance read once, cost and confidence written once."""
+    hw = h * w
+    return (4 * (n - 1) * 3 * hs * ws + n * PARAM_BYTES + 12 + 4 * 8 * hw + 8 * hw,
+            (n - 1) * hw * (k1_flops(3) + k2_flops(3)))
+
+
+def k4_work(n, c, hs, ws, h, w):
+    """Sources and coordinates read once, samples and validity written once;
+    taps and weights 8 FLOPs a point, a lerp of 6 per channel."""
+    return 4 * n * c * hs * ws + 8 * n * h * w + 4 * n * c * h * w + n * h * w, n * h * w * (8 + 6 * c)
+
+
+def graph_time_ms(fn, inner: int, reps: int = 7) -> float:
+    """Device milliseconds per call of ``fn()`` (one kernel launch and its
+    outputs' allocation): ``inner`` calls captured in one CUDA graph, whose
+    replays are timed with CUDA events (median over ``reps``), over
+    ``inner``. The graph takes the host's launch cost out, which at the
+    coarse levels exceeds the kernel's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    ms = cuda_time_ms(graph.replay, reps, warmup=1) / inner
+    del graph
+    return ms
+
+
+def level_row(name, h, w, fn, work, reps, inner):
+    """One row of the per-level table; ``fn()`` launches the kernel once."""
+    ms = cuda_time_ms(fn, reps)
+    graph_ms = graph_time_ms(fn, inner)
+    bound_ms, bound_by = roofline(*work)
+    row = dict(shape=f"{w}x{h}", h=h, w=w, ms=ms, graph_ms=graph_ms, bound_ms=bound_ms, bound_by=bound_by,
+               share=bound_ms / graph_ms)
+    log(f"  {name} {w}x{h}: {ms:.4f} ms a launch, {graph_ms:.4f} ms in a graph, bound {bound_ms:.4f} ms "
+        f"({bound_by}), share of the graph time {100 * row['share']:.1f}%")
+    return row
+
+
+def count_level_launches(checks, by_shape, totals):
+    """Fill each per-level row's launches a solve from the solve's counts
+    by (kernel, H, W), and launches x (graph_ms - bound). Raises if a
+    level of the table saw no launch, or a launch fell outside the table."""
+    for name in ("project_sample", "ssd_combine", "cost_fused"):
+        rows = checks[name]["levels"]
+        for row in rows:
+            row["launches_per_solve"] = n = by_shape.get((name, row["h"], row["w"]), 0)
+            row["lost_ms_per_solve"] = n * (row["graph_ms"] - row["bound_ms"])
+            log(f"  {name} {row['shape']}: {n} launches a solve, launches x (graph_ms - bound) "
+                f"{row['lost_ms_per_solve']:.2f} ms")
+            if n <= 0:
+                raise AssertionError(f"{name}: the solve never launched it at {row['shape']}")
+        counted = sum(row["launches_per_solve"] for row in rows)
+        if counted != totals[name]:
+            raise AssertionError(f"{name}: {counted} launches at the table's shapes, {totals[name]} in all")
+
+
 def check_kernels(dev):
-    """Each kernel against its twin at main-path shapes. Tolerances: the
-    kernels and twins round every product alike (-fmad=false); what is left
-    is atan2f/sqrt/exp last-ulp noise, which flips validity at a sensor or
-    FOV edge for a few pixels and, through the bias compensation's
-    cancellation and the drop-two-worst choice, moves a few costs."""
+    """K1-K3 against their twins, and K3 against K1 -> K2 bit for bit, at
+    every level shape the sphere solve launches them at (K3 from 512x384
+    up, K1 and K2 below), each timed with CUDA events and set against its
+    roofline. Tolerances: the kernels and twins round every product alike
+    (-fmad=false); what is left is atan2f/sqrt/exp last-ulp noise, which
+    flips validity at a sensor or FOV edge for a few pixels and, through the
+    bias compensation's cancellation and the drop-two-worst choice, moves a
+    few costs."""
     import torch
 
     from facebook360_dep_tpu_torch.ops import cost as cost_ops
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
-    results = {}
     flt_max = cost_ops.FLT_MAX
+    results = {k: dict(max_abs_err=0.0, levels=[]) for k in ("project_sample", "ssd_combine", "cost_fused")}
 
-    # ---- K1 / K2 at 256x192 x 16 sources ----
-    cctx, disp, gt, fov = main_path_inputs(256, dev)
-    k1_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays)
-    s_k, v_k = wc.project_sample(*k1_args)
-    s_p, v_p = wc.project_sample_plain(*k1_args)
-    torch.cuda.synchronize()
-    log("K1 project_sample C=3 (16 x 256x192):")
-    compare_validity("valid", v_k, v_p, 1e-4)
-    both = (v_k & v_p)[:, None].expand_as(s_k)
-    err3 = compare("sampled", s_k[both], s_p[both], 1e-5, 0.0, 1e-4)
-    ms3 = cuda_time_ms(lambda: wc.project_sample(*k1_args), 20)
-    pms3 = cuda_time_ms(lambda: wc.project_sample_plain(*k1_args), 5)
-    log(f"  time: kernel {ms3:.4f} ms, plain {pms3:.4f} ms")
+    def record(name, err, row):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        results[name]["levels"].append(row)
 
-    # C=1 on a NaN-holding disparity stack, as handle_mismatches samples it
-    stack = torch.where(fov, gt, float("nan"))[:, None].clone()
-    stack[:, :, :8, :8] = float("nan")
-    k1c1 = (stack.contiguous(),) + k1_args[1:]
-    d_k, dv_k = wc.project_sample(*k1c1)
-    d_p, dv_p = wc.project_sample_plain(*k1c1)
-    torch.cuda.synchronize()
-    log("K1 project_sample C=1 (16 x 256x192, NaN taps):")
-    compare_validity("valid", dv_k, dv_p, 1e-4)
-    b1 = dv_k & dv_p
-    err1 = compare("sampled", d_k[:, 0][b1], d_p[:, 0][b1], 1e-7, 1e-5, 1e-4)
-    ms1 = cuda_time_ms(lambda: wc.project_sample(*k1c1), 20)
-    pms1 = cuda_time_ms(lambda: wc.project_sample_plain(*k1c1), 5)
-    log(f"  time: kernel {ms1:.4f} ms, plain {pms1:.4f} ms")
-    results["project_sample"] = dict(max_abs_err=max(err3, err1), ms=ms3, plain_ms=pms3,
-                                     c1_max_abs_err=err1, c1_ms=ms1, c1_plain_ms=pms1)
+    # ---- K1 / K2 at each level below FUSED_MIN_PIXELS, 16 sources ----
+    log("K1 project_sample (C=3) and K2 ssd_combine, every level of the solve below K3:")
+    for width in [w for w in WIDTHS if w * height(w) < cost_ops.FUSED_MIN_PIXELS]:
+        cctx, disp, gt, fov = main_path_inputs(width, dev)
+        n, c, hs, ws = cctx.src_planar.shape
+        h, w = disp.shape
+        quiet = width != 256
+        k1_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays)
+        s_k, v_k = wc.project_sample(*k1_args)
+        s_p, v_p = wc.project_sample_plain(*k1_args)
+        torch.cuda.synchronize()
+        compare_validity(f"K1 {w}x{h} valid", v_k, v_p, 1e-4, quiet)
+        both = (v_k & v_p)[:, None].expand_as(s_k)
+        err1 = compare(f"K1 {w}x{h} sampled", s_k[both], s_p[both], 1e-5, 0.0, 1e-4, quiet)
+        # K2 on the twin's samples
+        k2_args = (s_p, v_p, cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+        c_k, f_k = wc.ssd_combine(*k2_args)
+        c_p, f_p = wc.ssd_combine_plain(*k2_args)
+        torch.cuda.synchronize()
+        compare_validity(f"K2 {w}x{h} cost finite", c_k < flt_max, c_p < flt_max, 1e-4, quiet)
+        fin = (c_k < flt_max) & (c_p < flt_max)
+        err2 = compare(f"K2 {w}x{h} cost", c_k[fin], c_p[fin], 1e-6, 1e-4, 1e-4, quiet)
+        compare(f"K2 {w}x{h} confidence", f_k, f_p, 0.0, 0.0, 0.0, quiet)
+        row1 = level_row("K1", h, w, lambda: wc.project_sample(*k1_args), k1_work(n, c, hs, ws, h, w), 20, 50)
+        row2 = level_row("K2", h, w, lambda: wc.ssd_combine(*k2_args), k2_work(n, c, h, w), 20, 50)
+        record("project_sample", err1, row1)
+        record("ssd_combine", err2, row2)
+        if width == 256:  # the representative shape: plain twins' times
+            pms1 = cuda_time_ms(lambda: wc.project_sample_plain(*k1_args), 5)
+            pms2 = cuda_time_ms(lambda: wc.ssd_combine_plain(*k2_args), 5)
+            log(f"  plain twins at {w}x{h}: K1 {pms1:.4f} ms, K2 {pms2:.4f} ms")
+            results["project_sample"].update(ms=row1["ms"], graph_ms=row1["graph_ms"], plain_ms=pms1,
+                                             shape=f"{w}x{h}")
+            results["ssd_combine"].update(ms=row2["ms"], graph_ms=row2["graph_ms"], plain_ms=pms2,
+                                          shape=f"{w}x{h}")
+            # C=1 on a NaN-holding disparity stack, as handle_mismatches samples it
+            stack = torch.where(fov, gt, float("nan"))[:, None].clone()
+            stack[:, :, :8, :8] = float("nan")
+            k1c1 = (stack.contiguous(),) + k1_args[1:]
+            d_k, dv_k = wc.project_sample(*k1c1)
+            d_p, dv_p = wc.project_sample_plain(*k1c1)
+            torch.cuda.synchronize()
+            log(f"K1 project_sample C=1 ({n} x {w}x{h}, NaN taps):")
+            compare_validity("valid", dv_k, dv_p, 1e-4)
+            b1 = dv_k & dv_p
+            err_c1 = compare("sampled", d_k[:, 0][b1], d_p[:, 0][b1], 1e-7, 1e-5, 1e-4)
+            ms_c1 = cuda_time_ms(lambda: wc.project_sample(*k1c1), 20)
+            pms_c1 = cuda_time_ms(lambda: wc.project_sample_plain(*k1c1), 5)
+            log(f"  time: kernel {ms_c1:.4f} ms a launch, plain {pms_c1:.4f} ms")
+            results["project_sample"].update(c1_max_abs_err=err_c1, c1_ms=ms_c1, c1_plain_ms=pms_c1)
+            results["project_sample"]["max_abs_err"] = max(results["project_sample"]["max_abs_err"], err_c1)
+        del cctx, s_k, s_p, v_k, v_p
 
-    # K2 on the twin's samples
-    k2_args = (s_p, v_p, cctx.dst_planar, cctx.variance, cctx.exclude_idx)
-    c_k, f_k = wc.ssd_combine(*k2_args)
-    c_p, f_p = wc.ssd_combine_plain(*k2_args)
-    torch.cuda.synchronize()
-    log("K2 ssd_combine (16 x 256x192):")
-    compare_validity("cost finite", c_k < flt_max, c_p < flt_max, 1e-4)
-    fin = (c_k < flt_max) & (c_p < flt_max)
-    err2 = compare("cost", c_k[fin], c_p[fin], 1e-6, 1e-4, 1e-4)
-    compare("confidence", f_k, f_p, 0.0, 0.0, 1e-4)
-    ms2 = cuda_time_ms(lambda: wc.ssd_combine(*k2_args), 20)
-    pms2 = cuda_time_ms(lambda: wc.ssd_combine_plain(*k2_args), 5)
-    log(f"  time: kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
-    results["ssd_combine"] = dict(max_abs_err=err2, ms=ms2, plain_ms=pms2)
-    del cctx, s_k, s_p, d_k, d_p
-
-    # ---- K3 at 2048x1536 x 16 sources ----
-    cctx, disp, gt, fov = main_path_inputs(2048, dev)
-    k3_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays,
-               cctx.dst_planar, cctx.variance, cctx.exclude_idx)
-    c_k, f_k = wc.cost_fused(*k3_args)
-    c_p, f_p = wc.cost_fused_plain(*k3_args)
-    s12, v12 = wc.project_sample(*k3_args[:5])
-    c_12, f_12 = wc.ssd_combine(s12, v12, *k3_args[5:])
-    del s12, v12
-    torch.cuda.synchronize()
-    log("K3 cost_fused (16 x 2048x1536):")
-    same = bool(torch.equal(c_k, c_12) and torch.equal(f_k, f_12))
-    log(f"  bit-identical to K1 -> K2: {same}")
-    if not same:
-        compare("cost vs K1 -> K2", c_k, c_12, 0.0, 0.0, 0.0)
-    compare_validity("cost finite", c_k < flt_max, c_p < flt_max, 1e-4)
-    fin = (c_k < flt_max) & (c_p < flt_max)
-    err = compare("cost", c_k[fin], c_p[fin], 1e-6, 1e-4, 1e-4)
-    compare("confidence", f_k, f_p, 0.0, 0.0, 1e-4)
-    ms = cuda_time_ms(lambda: wc.cost_fused(*k3_args), 20)
-    pms = cuda_time_ms(lambda: wc.cost_fused_plain(*k3_args), 3, warmup=1)
-    log(f"  time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    results["cost_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bit_identical_to_k1_k2=same)
-    del cctx, c_p, f_p
-    torch.cuda.empty_cache()
+    # ---- K3 at each level from FUSED_MIN_PIXELS up, 16 sources, through
+    # the solve's own cost function; the context's planar stack is a view
+    # of the one K3 reads, which K1 takes as a contiguous copy ----
+    log("K3 cost_fused, every level of the solve from FUSED_MIN_PIXELS up:")
+    for width in [w for w in WIDTHS if w * height(w) >= cost_ops.FUSED_MIN_PIXELS]:
+        cctx, disp, gt, fov = main_path_inputs(width, dev)
+        n, _, hs, ws = cctx.src_planar.shape
+        h, w = disp.shape
+        c_k, f_k = cost_ops.cost_for_disparity(cctx, disp)
+        s12, v12 = wc.project_sample(cctx.src_planar.contiguous(), cctx.src_params, cctx.cam_dst.position, disp,
+                                     cctx.dst_rays)
+        c_12, f_12 = wc.ssd_combine(s12, v12, cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+        del s12, v12
+        torch.cuda.synchronize()
+        same = bool(torch.equal(c_k, c_12) and torch.equal(f_k, f_12))
+        log(f"  K3 {w}x{h} bit-identical to K1 -> K2: {same}")
+        if not same:
+            compare(f"K3 {w}x{h} cost vs K1 -> K2", c_k, c_12, 0.0, 0.0, 0.0)
+        err = 0.0
+        if width == WIDTHS[0]:  # the twin at full width
+            plain_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays,
+                          cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+            c_p, f_p = wc.cost_fused_plain(*plain_args)
+            torch.cuda.synchronize()
+            compare_validity("K3 cost finite", c_k < flt_max, c_p < flt_max, 1e-4)
+            fin = (c_k < flt_max) & (c_p < flt_max)
+            err = compare("K3 cost", c_k[fin], c_p[fin], 1e-6, 1e-4, 1e-4)
+            compare("K3 confidence", f_k, f_p, 0.0, 0.0, 1e-4)
+            pms = cuda_time_ms(lambda: wc.cost_fused_plain(*plain_args), 3, warmup=1)
+            log(f"  plain twin at {w}x{h}: {pms:.4f} ms")
+            results["cost_fused"].update(plain_ms=pms, shape=f"{w}x{h}")
+            del c_p, f_p
+        row = level_row("K3", h, w, lambda: cost_ops.cost_for_disparity(cctx, disp), k3_work(n, hs, ws, h, w),
+                        20, 10)
+        record("cost_fused", err, row)
+        if width == WIDTHS[0]:
+            results["cost_fused"].update(ms=row["ms"], graph_ms=row["graph_ms"])
+        del cctx, c_k, f_k, c_12, f_12
+        torch.cuda.empty_cache()
+    results["cost_fused"]["bit_identical_to_k1_k2"] = True  # at every level: a difference raises above
+    for name, r in results.items():
+        top = next(row for row in r["levels"] if row["shape"] == r["shape"])
+        r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+                 library="none: no single PyTorch call computes it")
     return results
 
 
@@ -301,12 +462,27 @@ def check_warp_sample(root: str, out_root: str, dev):
     del s_k, s_p, v_k, v_p
     ms = cuda_time_ms(lambda: wc.warp_sample_planar(src, coords), 20)
     pms = cuda_time_ms(lambda: wc.warp_sample_planar_plain(src, coords), 3, warmup=1)
-    log(f"  time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    # the library yardstick, timed only (its NaN taps differ from K4's, so
+    # it is not compared): grid_sample at the same points, the grid
+    # normalized outside the timed region; x = 2 cx / ws - 1 puts pixel
+    # centres where align_corners=False puts them, border = clamp to edge
+    n, c, hs, ws = src.shape
+    scale = torch.tensor([2.0 / ws, 2.0 / hs], dtype=torch.float32, device=dev)
+    grid = coords * scale - 1.0
+    lib_ms = cuda_time_ms(lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="border", align_corners=False), 5, warmup=1)
+    del grid
+    h, w = coords.shape[1:3]
+    bound_ms, bound_by = roofline(*k4_work(n, c, hs, ws, h, w))
+    log(f"  time: kernel {ms:.4f} ms, plain {pms:.4f} ms, grid_sample {lib_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}), share {100 * bound_ms / ms:.1f}%")
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bit_identical=bit_identical)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                library_ms=lib_ms, library="torch.nn.functional.grid_sample (bilinear, border, align_corners=False)",
+                bit_identical=bit_identical)
 
 
-def run_rephotography(root: str, out_root: str, profile_dir: str):
+def run_rephotography(root: str, out_root: str, profile_dir: str, dev):
     """The port's compute_rephotography_errors on derp_cli's level 0, as
     tests/test_metrics_contract.py:92-98 runs it: TOTAL MSSIM against the
     reference's bar, with the K4 launches, wall time and peak memory."""
@@ -319,7 +495,7 @@ def run_rephotography(root: str, out_root: str, profile_dir: str):
     wc.reset_launch_counts()
     t = time.time()
     with profiled(profile_dir, "rephoto"):
-        result = cre.main([
+        result = cre.main(device=dev, argv=[
             "--color", os.path.join(root, "video/color_levels/level_0"),
             "--disparity", os.path.join(out_root, "disparity_levels/level_0"),
             "--rig", os.path.join(root, "rigs/rig_calibrated.json"),
@@ -342,7 +518,7 @@ def run_rephotography(root: str, out_root: str, profile_dir: str):
     return dict(rephoto_mssim=mssim, rephoto_s=seconds, rephoto_peak_gib=peak), launches["warp_sample"]
 
 
-def run_renderer(root: str, out_root: str, fmt: str):
+def run_renderer(root: str, out_root: str, fmt: str, dev):
     """The port's simple_mesh_renderer at its default 2048x1024 on derp_cli's
     level 0; the image must be finite with non-trivial alpha coverage."""
     import torch
@@ -357,7 +533,7 @@ def run_renderer(root: str, out_root: str, fmt: str):
         "--color", os.path.join(root, "video/color_levels/level_0"),
         "--disparity", os.path.join(out_root, "disparity_levels/level_0"),
         "--output", os.path.join(root, "render", fmt), "--format", fmt,
-    ])
+    ], device=dev)
     torch.cuda.synchronize()
     seconds = time.time() - t
     rec = records[0]
@@ -563,6 +739,8 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
             "--output", os.path.join(fg_out, "eqrcolor"), "--format", "eqrcolor",
             "--first", CHAIN_FRAMES[1], "--last", CHAIN_FRAMES[1]]),
     ]
+    on_device = {derp_cli.main, generate_foreground_masks.main, temporal_bilateral_filter.main,
+                 upsample_disparity.main, simple_mesh_renderer.main}
     launches, results, peaks = {}, {}, {}
     for name, entry, argv in stages:
         if dev.type == "cuda":
@@ -570,7 +748,7 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
         wc.reset_launch_counts()
         t = time.time()
         with profiled(profile_dir if name == "derp foreground" else "", "derp_foreground"):
-            results[name] = entry(argv)
+            results[name] = entry(argv, device=dev) if entry in on_device else entry(argv)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         seconds[name] = time.time() - t
@@ -666,6 +844,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument("--profile", default="",
                         help="profile the derp_cli, rephotography and foreground-solve runs; write the tables here")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build K1-K4, run the K1-K3 checks and per-level times (step 3), print them and stop")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -695,6 +875,10 @@ def main(argv=None) -> int:
     t = time.time()
     checks = check_kernels(dev)
     log(f"kernel checks: {time.time() - t:.1f} s")
+    if args.kernels_only:  # the main path did not run: no launch counts, no kernels or ok line
+        log(smi)
+        log(json.dumps({"kernel_table": checks}))
+        return 0
 
     with tempfile.TemporaryDirectory(prefix="fdt_smoke_") as root:
         t = time.time()
@@ -707,10 +891,10 @@ def main(argv=None) -> int:
             est = derp_cli.main([
                 "--input_root", root, "--output_root", out_root,
                 "--min_depth_m", "1", "--max_depth_m", "100", "--resolution", "2048",
-            ])
+            ], device=dev)
             torch.cuda.synchronize()
         total = time.time() - t
-        launches = dict(wc.LAUNCHES)
+        launches, by_shape = dict(wc.LAUNCHES), dict(wc.LAUNCHES_BY_SHAPE)
         log(f"derp_cli: {total:.2f} s for {NUM_CAMERAS} destination maps, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for level in sorted(est.level_seconds, reverse=True):
@@ -720,14 +904,15 @@ def main(argv=None) -> int:
         missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched by the main path: {missing}")
+        count_level_launches(checks, by_shape, launches)
         med, coverage, rmse = check_level0(out_root, rig, gt0)
 
         t = time.time()
         checks["warp_sample"] = check_warp_sample(root, out_root, dev)
         log(f"K4 check: {time.time() - t:.1f} s")
-        render, k4_launches = run_rephotography(root, out_root, args.profile)
+        render, k4_launches = run_rephotography(root, out_root, args.profile, dev)
         for fmt in ("eqrcolor", "tbstereo"):
-            render.update(run_renderer(root, out_root, fmt))
+            render.update(run_renderer(root, out_root, fmt, dev))
         launches["warp_sample"] = k4_launches
 
     with tempfile.TemporaryDirectory(prefix="fdt_chain_") as tmp:

@@ -4,12 +4,24 @@ Mirrors the JAX package's sub-packages (``core``, ``ops``, ``depth``,
 ``render``, ``cli``). Plain tensor code is PyTorch; the Pallas kernels of the
 depth-estimation hot path are hand-written CUDA C++ under ``csrc/``, built at
 first use by :mod:`facebook360_dep_tpu_torch.ops._build`.
+
+The entry points (each CLI's ``main`` and ``DepthEstimator``) run on the card.
+Where none is visible they raise; a caller that wants the CPU, as the tests
+do, passes ``device="cpu"``.
 """
 
 import torch
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a card is visible, else ``cpu`` (the JAX package's
-    default-backend rule, depth/pipeline.py)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``; raises ``RuntimeError`` where no card is visible, so that a
+    run never carries on silently on the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible: the port runs on the card; "
+                           "pass device='cpu' to an entry point to run it on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's ``device`` argument: None means the card."""
+    return default_device() if device is None else torch.device(device)

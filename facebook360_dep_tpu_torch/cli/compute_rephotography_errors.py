@@ -5,7 +5,7 @@ For each camera, render a cubemap at its position twice — once from its own
 MSSIM/NCC. Logs per-camera and "TOTAL average" scores in the reference's
 format (``render/ComputeRephotographyErrors.cpp:46-195``), which
 ``facebook360_dep_tpu/cli/log_reader.py`` parses. Renders and scores run on
-the default device (CUDA when visible).
+the card.
 
     python -m facebook360_dep_tpu_torch.cli.compute_rephotography_errors \\
         --color <root>/video/color_levels/level_0 --disparity <out>/disparity_levels/level_0 \\
@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import default_device, resolve_device
 from ..core import camera as cam, io
 from ..render import dibr, rephoto
 
@@ -46,7 +46,7 @@ def load_rig_images(color_dir, disp_dir, rig, frame):
 def rephotography_scores(rig: cam.Rig, colors, disps, method="MSSIM", stat_radius=1, face_size=None):
     """Per-camera (R, G, B) scores; returns (scores list, total average).
     ``colors``/``disps`` are arrays or tensors; they are rendered on the
-    device of a tensor, else on the default device."""
+    device of a tensor, else on the card."""
     dev = colors.device if torch.is_tensor(colors) else default_device()
     colors = torch.as_tensor(colors, dtype=torch.float32, device=dev)
     disps = torch.as_tensor(disps, dtype=torch.float32, device=dev)
@@ -69,8 +69,8 @@ def rephotography_scores(rig: cam.Rig, colors, disps, method="MSSIM", stat_radiu
     return scores, total
 
 
-def main(argv=None):
-    """Parse ``argv`` and score every frame. Returns {"frames": {frame:
+def main(argv=None, *, device=None):
+    """Parse ``argv`` and score every frame on ``device`` (None: the card). Returns {"frames": {frame:
     {"cameras": {id: [r, g, b]}, "total": [r, g, b]}}, "total": [r, g, b]}."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
@@ -85,6 +85,7 @@ def main(argv=None):
     p.add_argument("--stat_radius", type=int, default=1)
     p.add_argument("--threads", type=int, default=-1)
     args = p.parse_args(argv)
+    dev = resolve_device(device)
 
     rig = cam.load_rig(args.rig)
     if args.cameras:
@@ -97,7 +98,8 @@ def main(argv=None):
         t = time.time()
         colors, disps = load_rig_images(args.color, args.disparity, rig, frame)
         log.info("frame %s: loaded %d cameras in %.2fs", frame, len(rig.ids), time.time() - t)
-        scores, total = rephotography_scores(rig, colors, disps, args.method, args.stat_radius)
+        scores, total = rephotography_scores(rig, torch.from_numpy(colors).to(dev), torch.from_numpy(disps).to(dev),
+                                             args.method, args.stat_radius)
         frames[frame] = {"cameras": {c: s.tolist() for c, s in zip(rig.ids, scores)}, "total": total.tolist()}
     grand = np.mean([v["total"] for v in frames.values()], axis=0)
     log.info("TOTAL average %s: %s", args.method, rephoto.format_results(grand))

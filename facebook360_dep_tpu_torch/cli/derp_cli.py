@@ -79,16 +79,16 @@ def options_from_args(args) -> DepthEstimatorOptions:
     return DepthEstimatorOptions(**{k: v for k, v in vars(args).items() if k in fields})
 
 
-def main(argv=None) -> DepthEstimator:
-    """Parse ``argv``, run the estimator, and return it (its
-    ``level_seconds`` holds the per-level wall times)."""
+def main(argv=None, *, device=None) -> DepthEstimator:
+    """Parse ``argv``, run the estimator on ``device`` (None: the card), and
+    return it (its ``level_seconds`` holds the per-level wall times)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     add_flags(p)
     args = p.parse_args(argv)
     if args.coordinator_address:
         raise NotImplementedError("--coordinator_address: the multi-GPU path is not ported yet")
-    estimator = DepthEstimator(options_from_args(args))
+    estimator = DepthEstimator(options_from_args(args), device=device)
     estimator.run()
     return estimator
 

@@ -1,7 +1,7 @@
 """GenerateForegroundMasks equivalent (render/GenerateForegroundMasks.cpp:41-53).
 
 Each frame of each camera is compared with the background frame by
-background subtraction (render/foreground.py) on the default device, after
+background subtraction (render/foreground.py) on the card, after
 both are resized to ``--width`` (INTER_AREA) when they are wider. Masks are
 written as 8-bit PNGs, 255 = foreground, to ``<foreground_masks>/<cam>/<frame>.png``.
 
@@ -18,14 +18,15 @@ import os
 
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..core import camera as cam, io
 from ..render import foreground
 
 log = logging.getLogger("fgmasks")
 
 
-def main(argv=None):
+def main(argv=None, *, device=None):
+    """Parse ``argv`` and write the masks; ``device`` None means the card."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--background_color", required=True)
@@ -42,11 +43,11 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=2048)
     p.add_argument("--threads", type=int, default=-1)
     args = p.parse_args(argv)
+    dev = resolve_device(device)
 
     rig = cam.load_rig(args.rig)
     if args.cameras:
         rig = cam.filter_destinations(rig, args.cameras)
-    dev = default_device()
 
     def load(root, cam_id, frame, size_wh=None):
         img = io.read_color(io.frame_path(os.path.join(root, cam_id), frame))[..., :3]

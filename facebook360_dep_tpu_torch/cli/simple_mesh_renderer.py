@@ -3,8 +3,7 @@ color + disparity.
 
 Formats (render/SimpleMeshRenderer.cpp:92-112): cubecolor, cubedisp,
 eqrcolor, eqrdisp, snapshot, tbstereo, lr180, tb3dof, rendered by the DIBR
-splat + gather path (render/dibr.py) on the default device (CUDA when
-visible). Stereo formats render one ODS eye each with the latitude-faded
+splat + gather path (render/dibr.py) on the card. Stereo formats render one ODS eye each with the latitude-faded
 IPD warp. Color formats are written as 8-bit PNG, disparity formats as
 16-bit PNG.
 
@@ -20,6 +19,7 @@ import os
 
 import torch
 
+from .. import resolve_device
 from ..core import camera as cam, io
 from ..render import dibr
 from .compute_rephotography_errors import load_rig_images
@@ -59,8 +59,8 @@ def render_format(fmt, rig, colors, disps, width, height, ipd, position):
     raise ValueError(f"unknown format {fmt}")
 
 
-def main(argv=None):
-    """Parse ``argv`` and render every frame. Returns one record a frame:
+def main(argv=None, *, device=None):
+    """Parse ``argv`` and render every frame on ``device`` (None: the card). Returns one record a frame:
     {"frame", "path", "shape", "coverage" (alpha share), "finite"}."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
@@ -76,6 +76,7 @@ def main(argv=None):
     p.add_argument("--ipd", type=float, default=0.064)
     p.add_argument("--position", default="0,0,0")
     args = p.parse_args(argv)
+    dev = resolve_device(device)
 
     rig = cam.load_rig(args.rig)
     position = [float(v) for v in args.position.split(",")]
@@ -84,8 +85,8 @@ def main(argv=None):
     for f in range(int(args.first), int(args.last) + 1):
         frame = io.frame_name(f)
         colors, disps = load_rig_images(args.color, args.disparity, rig, frame)
-        img, alpha = render_format(args.format, rig, colors, disps, args.width, args.height, args.ipd,
-                                   position)
+        img, alpha = render_format(args.format, rig, torch.from_numpy(colors).to(dev), torch.from_numpy(disps).to(dev),
+                                   args.width, args.height, args.ipd, position)
         coverage = alpha.float().mean().item()
         finite = bool(torch.isfinite(img[alpha]).all())
         out = os.path.join(args.output, frame + ".png")

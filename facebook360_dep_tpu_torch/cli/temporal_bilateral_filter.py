@@ -2,7 +2,7 @@
 
 Flags mirror ``depth_estimation/TemporalBilateralFilter.cpp:40-59``. Each
 output frame is filtered over the frames within ``time_radius`` that exist
-on disk for both color and disparity, on the default device
+on disk for both color and disparity, on the card
 (``filters.temporal_bilateral``); camera by camera, so each input file is
 read once, and written to
 ``<output_root>/disparity_time_filtered_levels/level_N/<cam>/<frame>.pfm``.
@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..core import camera as cam, imagetypes, io
 from ..depth.pipeline import generate_fov_masks
 from ..ops import cost as cost_ops, filters
@@ -46,7 +46,8 @@ def _frame_window(root, level, cam_id, frame_idx, time_radius):
     return lo, hi
 
 
-def main(argv=None):
+def main(argv=None, *, device=None):
+    """Parse ``argv`` and write the outputs; ``device`` None means the card."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--input_root", required=True)
@@ -70,11 +71,11 @@ def main(argv=None):
     p.add_argument("--weight_b", type=float, default=0.5)
     p.add_argument("--threads", type=int, default=-1)
     args = p.parse_args(argv)
+    dev = resolve_device(device)
 
     color = args.color or imagetypes.image_dir(args.input_root, "color_levels")
     disparity = args.disparity or imagetypes.image_dir(args.output_root, "disparity_levels")
     fg_root = args.foreground_masks or imagetypes.image_dir(args.input_root, "foreground_masks_levels")
-    dev = default_device()
 
     rig = cam.filter_destinations(cam.load_rig(args.rig), args.cameras)
     nrig = cam.normalize_rig(rig)
@@ -98,7 +99,7 @@ def main(argv=None):
                 frame = io.frame_name(f)
                 d = io.read_disparity(_frame_path(disparity, args.level, cam_id, frame))
                 if fov_masks is None:
-                    fov_masks = generate_fov_masks(nrig, d.shape).cpu().numpy()
+                    fov_masks = generate_fov_masks(nrig, d.shape, dev).cpu().numpy()
                 m = fov_masks[i]
                 if args.use_foreground_masks:
                     m = m & io.read_mask(_frame_path(fg_root, args.level, cam_id, frame))

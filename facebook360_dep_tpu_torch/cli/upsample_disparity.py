@@ -3,7 +3,7 @@ output resolution. Flags mirror ``depth_estimation/UpsampleDisparity.cpp:37-55``
 the upsample follows ``UpsampleDisparityLib.cpp:93-220`` (masked nearest or
 Lanczos4 upsize, NaN fill, background fill), then with ``--color`` the
 joint bilateral filter guided by the full-resolution color runs on the
-default device. Writes ``<output>/<cam>/<frame>.<format>``.
+card. Writes ``<output>/<cam>/<frame>.<format>``.
 
     python -m facebook360_dep_tpu_torch.cli.upsample_disparity --rig <rig.json> \\
         --disparity <dir at the input level> --output <dir> --resolution 2048 \\
@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..core import camera as cam, io
 from ..depth import pipeline as depth_pipeline
 from ..depth.pipeline import generate_fov_masks
@@ -35,7 +35,8 @@ def get_radius(size_hw, size_up_wh) -> int:
     return int(scale * scale + 1)
 
 
-def main(argv=None):
+def main(argv=None, *, device=None):
+    """Parse ``argv`` and write the outputs; ``device`` None means the card."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--disparity", required=True, help="input-resolution disparity dir")
@@ -58,6 +59,7 @@ def main(argv=None):
     p.add_argument("--weight_b", type=float, default=0.5)
     p.add_argument("--threads", type=int, default=-1)
     args = p.parse_args(argv)
+    dev = resolve_device(device)
 
     rig = cam.filter_destinations(cam.load_rig(args.rig), args.cameras)
     nrig = cam.normalize_rig(rig)
@@ -70,7 +72,6 @@ def main(argv=None):
     size_up = (args.resolution, height)
     formats = [f for f in (args.output_formats or "pfm").split(",") if f]
     use_fg = bool(args.foreground_masks_in)
-    dev = default_device()
 
     fov_small = fov_up = None
 
@@ -82,8 +83,8 @@ def main(argv=None):
         for i, cam_id in enumerate(rig.ids):
             disp = load(args.disparity, cam_id, frame, io.read_disparity)
             if fov_small is None:
-                fov_small = generate_fov_masks(nrig, disp.shape).cpu().numpy()
-                fov_up = generate_fov_masks(nrig, (size_up[1], size_up[0])).cpu().numpy()
+                fov_small = generate_fov_masks(nrig, disp.shape, dev).cpu().numpy()
+                fov_up = generate_fov_masks(nrig, (size_up[1], size_up[0]), dev).cpu().numpy()
             bg_up = (load(args.background_disp, cam_id, args.background_frame, io.read_disparity)
                      if args.background_disp else np.zeros((size_up[1], size_up[0]), np.float32))
             mask_up = np.ones((size_up[1], size_up[0]), bool)

@@ -110,18 +110,35 @@ __device__ __forceinline__ bool project_point(const float* __restrict__ P, float
   return !outside_fov && !outside_sensor;
 }
 
+// The source-independent half of reproject: the world point of a
+// destination pixel at disparity d along its ray.
+__device__ __forceinline__ void world_point(const float* __restrict__ pos, float rx, float ry, float rz,
+                                            float d, float& wx, float& wy, float& wz) {
+  const float depth = 1.f / clamp_min(d, 1e-12f);
+  wx = pos[0] + rx * depth;
+  wy = pos[1] + ry * depth;
+  wz = pos[2] + rz * depth;
+}
+
+// The source-dependent half: world point -> source sample coords (source
+// pixel units) and validity; ``d_ok`` is the pixel's d > 0.
+__device__ __forceinline__ bool reproject_world(const float* __restrict__ P, float wx, float wy, float wz,
+                                                bool d_ok, int hs, int ws, float& cx, float& cy) {
+  float px, py;
+  const bool seen = project_point(P, wx, wy, wz, px, py);
+  cx = px * static_cast<float>(ws);
+  cy = py * static_cast<float>(hs);
+  return seen && d_ok && isfinite(cx) && isfinite(cy);
+}
+
 // Destination pixel at disparity d along its ray -> source sample coords
-// (source pixel units) and validity (ops/cost.py::reproject_rays).
+// and validity (ops/cost.py::reproject_rays).
 __device__ __forceinline__ bool reproject(const float* __restrict__ P, const float* __restrict__ pos,
                                           float rx, float ry, float rz, float d, int hs, int ws,
                                           float& cx, float& cy) {
-  const float depth = 1.f / clamp_min(d, 1e-12f);
-  float px, py;
-  const bool seen = project_point(P, pos[0] + rx * depth, pos[1] + ry * depth,
-                                  pos[2] + rz * depth, px, py);
-  cx = px * static_cast<float>(ws);
-  cy = py * static_cast<float>(hs);
-  return seen && d > 0.f && isfinite(cx) && isfinite(cy);
+  float wx, wy, wz;
+  world_point(pos, rx, ry, rz, d, wx, wy, wz);
+  return reproject_world(P, wx, wy, wz, d > 0.f, hs, ws, cx, cy);
 }
 
 // Bilinear taps of ops/sampling.py::bilinear_sample: each tap clamped to
@@ -150,24 +167,25 @@ __device__ __forceinline__ Taps bilinear_taps(float cx, float cy, int hs, int ws
 }
 
 // All four taps enter the lerp, so a NaN tap with zero weight still gives NaN.
-__device__ __forceinline__ float bilinear(const float* __restrict__ plane, const Taps& t) {
-  const float top = plane[t.i00] * (1.f - t.wx) + plane[t.i01] * t.wx;
-  const float bot = plane[t.i10] * (1.f - t.wx) + plane[t.i11] * t.wx;
+__device__ __forceinline__ float lerp4(float a00, float a01, float a10, float a11, const Taps& t) {
+  const float top = a00 * (1.f - t.wx) + a01 * t.wx;
+  const float bot = a10 * (1.f - t.wx) + a11 * t.wx;
   return top * (1.f - t.wy) + bot * t.wy;
+}
+
+__device__ __forceinline__ float bilinear(const float* __restrict__ plane, const Taps& t) {
+  return lerp4(plane[t.i00], plane[t.i01], plane[t.i10], plane[t.i11], t);
 }
 
 
 constexpr float MIN_VAR = static_cast<float>(1.0 / 12.0 / 65025.0);  // ops/cost.py
 constexpr int MIN_PATCH_SUPPORT = 5;
 
-// 3x3 sum of a [dy][dx] neighbourhood: rows first, then columns, as
-// ops/sampling.py::box_sum_planar adds its shifted planes.
-__device__ __forceinline__ float box3(const float (&a)[3][3]) {
-  const float c0 = (a[0][0] + a[1][0]) + a[2][0];
-  const float c1 = (a[0][1] + a[1][1]) + a[2][1];
-  const float c2 = (a[0][2] + a[1][2]) + a[2][2];
-  return (c0 + c1) + c2;
-}
+// One column of a 3x3 box sum: (top + middle) + bottom. The box takes its
+// three column sums the same way, (left + centre) + right, which is the
+// order ops/sampling.py::box_sum_planar adds its shifted planes in; the
+// kernels' separable boxes keep it, so they round as the plain path does.
+__device__ __forceinline__ float col3(float top, float mid, float bot) { return (top + mid) + bot; }
 
 // Running drop-2-worst state over sources (ops/cost.py::combine_top2).
 struct Top2 {
@@ -175,37 +193,45 @@ struct Top2 {
   int count = 0;
 };
 
-// One source's bias-compensated 3x3 patch SSD (ops/cost.py::ssd_planar)
-// folded into the running state. vld/d2/dc are [dy][dx] neighbourhoods of
-// validity, sum_c diff_c^2 and the per-channel masked differences.
+// One source's bias-compensated 3x3 patch SSD at one pixel
+// (ops/cost.py::ssd_planar): biased, unbiased and whether it counts.
+// Where it does not, b = -FLT_MAX and u = 0, so folding it changes nothing.
+struct Patch {
+  float b, u;
+  bool v;
+};
+
+// From the 3x3 sums of validity (cnt), sum_c diff_c^2 and each channel's
+// masked difference, and the centre's validity.
 template <int C>
-__device__ __forceinline__ void patch_update(const float (&vld)[3][3], const float (&d2)[3][3],
-                                             const float (&dc)[C][3][3], Top2& t) {
-  const float cnt = box3(vld);
+__device__ __forceinline__ Patch patch_ssd(float cnt, float sum_d2, const float (&sum_dc)[C], bool center) {
   const float cnt_safe = fmaxf(cnt, 1.f);
-  const float biased = box3(d2) * (9.f / cnt_safe);
+  const float biased = sum_d2 * (9.f / cnt_safe);
   float md_sq = 0.f;
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
-    const float md = box3(dc[ch]) / cnt_safe;
+    const float md = sum_dc[ch] / cnt_safe;
     md_sq = ch == 0 ? md * md : md_sq + md * md;
   }
   const float unbiased = fmaxf(biased - 9.f * md_sq, 0.f);
-  const bool v = vld[1][1] > 0.f && cnt >= static_cast<float>(MIN_PATCH_SUPPORT);
-  const float b = v ? biased : -FLT_MAX;
-  const float u = v ? unbiased : 0.f;
-  // two largest biased SSDs; the earlier source wins ties (argmax order)
-  if (b > t.b1) {
+  const bool v = center && cnt >= static_cast<float>(MIN_PATCH_SUPPORT);
+  return Patch{v ? biased : -FLT_MAX, v ? unbiased : 0.f, v};
+}
+
+// Fold one source's patch into the running state, sources in order: the
+// two largest biased SSDs, the earlier source winning ties (argmax order).
+__device__ __forceinline__ void top2_fold(const Patch& p, Top2& t) {
+  if (p.b > t.b1) {
     t.b2 = t.b1;
     t.u2 = t.u1;
-    t.b1 = b;
-    t.u1 = u;
-  } else if (b > t.b2) {
-    t.b2 = b;
-    t.u2 = u;
+    t.b1 = p.b;
+    t.u1 = p.u;
+  } else if (p.b > t.b2) {
+    t.b2 = p.b;
+    t.u2 = p.u;
   }
-  t.total_u += u;
-  t.count += v;
+  t.total_u += p.u;
+  t.count += p.v;
 }
 
 // keep = clip(max(count - 2, 1), 1, n); cost = (sum u - dropped) / keep^2 /

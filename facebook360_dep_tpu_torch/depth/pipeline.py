@@ -25,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import default_device
+from .. import resolve_device
 from ..core import camera as cam
 from ..core import imagetypes, io
 from ..ops import sampling
@@ -196,13 +196,13 @@ class DepthEstimator:
     """Loads rig + pyramid metadata once; estimates disparity per frame/level.
 
     ``level_seconds`` holds each level's wall time (all frames, outputs
-    written) after :meth:`run`.
+    written) after :meth:`run`. ``device`` None means the card.
     """
 
-    def __init__(self, opts: DepthEstimatorOptions):
+    def __init__(self, opts: DepthEstimatorOptions, *, device=None):
         opts.resolve_paths()
         self.opts = opts
-        self.device = default_device()
+        self.device = resolve_device(device)
         rig_src = cam.load_rig(opts.rig)
         rig_dst = cam.filter_destinations(rig_src, opts.cameras)
         self.full_height = int(rig_dst.cameras.resolution[0, 1])

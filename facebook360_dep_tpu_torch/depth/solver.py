@@ -34,7 +34,10 @@ class LevelContext(NamedTuple):
     dst_cams: cam.Camera  # stacked (D,), normalized, float32
     dst2src: tuple  # (D,) int: each dst camera's index among the sources
     src_imgs: torch.Tensor  # (N, H, W, 3) float32 [0,1]
-    src_planar: torch.Tensor  # (N, 3, H, W) the same colors, channel-planar
+    # the same colors, channel-planar (N, 3, H, W): K1's stack below
+    # FUSED_MIN_PIXELS, from there up a view of src_rgba (no copy)
+    src_planar: torch.Tensor
+    src_rgba: torch.Tensor | None  # (N, H, W, 4) the same colors + pad for K3; None below FUSED_MIN_PIXELS
     src_params: torch.Tensor  # (N, 24) packed source cameras
     src_variance: torch.Tensor  # (N, H, W)
     dst_fov_masks: torch.Tensor  # (D, H, W) bool
@@ -101,13 +104,21 @@ def make_level_context(
     # invalid for every source (mask_fov discards them anyway).
     rays = cost_ops.dst_ray_dirs(dst_cams, h, w)
     rays = torch.where(dst_fov[..., None], rays, float("nan"))
-    src_planar = src_imgs[..., :3].permute(0, 3, 1, 2).contiguous()
+    # one sampling stack a level: interleaved where K3 runs (805 MB at
+    # 2K x 16), channel-planar where K1 does
+    if h * w >= cost_ops.FUSED_MIN_PIXELS:
+        src_rgba = warp_cuda.rgba_stack(src_imgs)
+        src_planar = warp_cuda.planar_view(src_rgba)
+    else:
+        src_rgba = None
+        src_planar = src_imgs[..., :3].permute(0, 3, 1, 2).contiguous()
     return LevelContext(
         src_cams=src_cams,
         dst_cams=dst_cams,
         dst2src=tuple(int(i) for i in cam.map_src_to_dst_indexes(rig_src, rig_dst)),
         src_imgs=src_imgs,
         src_planar=src_planar,
+        src_rgba=src_rgba,
         src_params=warp_cuda.pack_camera_params(src_cams),
         src_variance=sampling.rgb_variance(src_imgs),
         dst_fov_masks=dst_fov,
@@ -124,11 +135,12 @@ def _cost_ctx(ctx: LevelContext, dst_idx: int) -> CostContext:
     return CostContext(
         cam_dst=ctx.dst_cams.index(dst_idx),
         src_params=ctx.src_params,
-        dst_planar=ctx.src_planar[src_idx],
+        dst_planar=ctx.src_planar[src_idx].contiguous(),
         src_planar=ctx.src_planar,
         variance=ctx.src_variance[src_idx],
         exclude_idx=src_idx,
         dst_rays=ctx.dst_rays[dst_idx],
+        src_rgba=ctx.src_rgba,
     )
 
 

@@ -55,10 +55,15 @@ class CostContext(NamedTuple):
     cam_dst: cam.Camera  # normalized, float32
     src_params: torch.Tensor  # (N, 24) packed source cameras (warp_cuda.pack_camera_params)
     dst_planar: torch.Tensor  # (3, H, W) float in [0,1]
-    src_planar: torch.Tensor  # (N, 3, Hs, Ws)
+    # (N, 3, Hs, Ws): what K1 reads below FUSED_MIN_PIXELS; from there up a
+    # view of src_rgba, for the twins
+    src_planar: torch.Tensor
     variance: torch.Tensor  # (H, W) dst color variance
     exclude_idx: int  # index of dst within the src rig
     dst_rays: torch.Tensor  # (3, H, W) unit ray dirs of the dst pixels
+    # (N, Hs, Ws, 4) RGB + pad (warp_cuda.rgba_stack), what K3 reads from
+    # FUSED_MIN_PIXELS up; None below
+    src_rgba: torch.Tensor | None = None
 
 
 def dst_ray_dirs(cam_dst: cam.Camera, h: int, w: int) -> torch.Tensor:
@@ -181,10 +186,10 @@ def cost_for_disparity(ctx: CostContext, disparity):
     """Cost + confidence maps (H, W) for a disparity map or a scalar hypothesis."""
     h, w = ctx.dst_planar.shape[-2:]
     disp = _disparity_map(disparity, h, w, ctx.dst_planar.device)
-    project = (ctx.src_planar, ctx.src_params, ctx.cam_dst.position, disp, ctx.dst_rays)
+    project = (ctx.src_params, ctx.cam_dst.position, disp, ctx.dst_rays)
     if h * w >= FUSED_MIN_PIXELS:
-        return warp_cuda.cost_fused(*project, ctx.dst_planar, ctx.variance, ctx.exclude_idx)
-    sampled, valid = warp_cuda.project_sample(*project)
+        return warp_cuda.cost_fused(ctx.src_rgba, *project, ctx.dst_planar, ctx.variance, ctx.exclude_idx)
+    sampled, valid = warp_cuda.project_sample(ctx.src_planar, *project)
     return warp_cuda.ssd_combine(sampled, valid, ctx.dst_planar, ctx.variance, ctx.exclude_idx)
 
 

@@ -16,7 +16,8 @@ render gather (``render/dibr.py::render_view``).
 
 Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch twin on CPU tensors; there is no fallback from one to the other.
-``LAUNCHES`` counts kernel launches only. The twins are the JAX package's
+``LAUNCHES`` counts kernel launches only, and ``LAUNCHES_BY_SHAPE`` the
+same launches by (kernel, H, W) of their output. The twins are the JAX package's
 exact XLA path (f32 bilinear gathers: no source windows, no quantization, so
 nothing is ever clipped) and are what the kernels are held against.
 """
@@ -42,13 +43,16 @@ PARAM_TYPE = 21      # 1: type code
 PARAM_RES = 22       # 2: resolution (normalized rigs: 1, 1)
 PARAM_SIZE = 24
 
-# kernel launches since the last reset_launch_counts()
+# kernel launches since the last reset_launch_counts(), in all and by
+# (kernel, H, W) of the output
 LAUNCHES = {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0}
+LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def pack_camera_params(cams: cam.Camera) -> torch.Tensor:
@@ -105,7 +109,8 @@ def ssd_combine_plain(sampled, valid, dst_planar, variance, exclude_idx: int):
 
 def cost_fused_plain(src_planar, params, dst_position, disparity, rays, dst_planar, variance,
                      exclude_idx: int):
-    """K3's twin: K1's twin followed by K2's twin."""
+    """K3's twin: K1's twin followed by K2's twin, on the planar stack
+    (of the interleaved one K3 reads, :func:`planar_view`)."""
     sampled, valid = project_sample_plain(src_planar, params, dst_position, disparity, rays)
     return ssd_combine_plain(sampled, valid, dst_planar, variance, exclude_idx)
 
@@ -138,11 +143,13 @@ def _check(name: str, t: torch.Tensor, device, shape, dtype=torch.float32):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(kernel: str, fn, *args):
+def _launch(kernel: str, hw: tuple[int, int], fn, *args):
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
     LAUNCHES[kernel] += 1
+    key = (kernel, *hw)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 def project_sample(src_planar, params, dst_position, disparity, rays):
@@ -166,7 +173,7 @@ def project_sample(src_planar, params, dst_position, disparity, rays):
     sampled = torch.empty((n, c, h, w), dtype=torch.float32, device=dev)
     valid = torch.empty((n, h, w), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        _launch("project_sample", _build.load().fdt_project_sample,
+        _launch("project_sample", (h, w), _build.load().fdt_project_sample,
                 src_planar.data_ptr(), n, c, hs, ws, params.data_ptr(), dst_position.data_ptr(),
                 disparity.data_ptr(), rays.data_ptr(), h, w, sampled.data_ptr(), valid.data_ptr())
     return sampled, valid
@@ -190,25 +197,37 @@ def ssd_combine(sampled, valid, dst_planar, variance, exclude_idx: int):
     cost = torch.empty((h, w), dtype=torch.float32, device=dev)
     conf = torch.empty((h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("ssd_combine", _build.load().fdt_ssd_combine,
+        _launch("ssd_combine", (h, w), _build.load().fdt_ssd_combine,
                 sampled.data_ptr(), valid.data_ptr(), dst_planar.data_ptr(), variance.data_ptr(),
                 n, c, h, w, int(exclude_idx), cost.data_ptr(), conf.data_ptr())
     return cost, conf
 
 
-def cost_fused(src_planar, params, dst_position, disparity, rays, dst_planar, variance,
+def rgba_stack(imgs: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C >= 3) colors -> the (N, H, W, 4) float32 stack K3 reads:
+    RGB and a zero pad, so each bilinear tap is one 16-byte load."""
+    return torch.nn.functional.pad(imgs[..., :3].to(torch.float32), (0, 1)).contiguous()
+
+
+def planar_view(src_rgba: torch.Tensor) -> torch.Tensor:
+    """The (N, 3, H, W) channel-planar view of an :func:`rgba_stack`, no
+    copy (not contiguous): what the twins read at the K3 levels."""
+    return src_rgba[..., :3].permute(0, 3, 1, 2)
+
+
+def cost_fused(src_rgba, params, dst_position, disparity, rays, dst_planar, variance,
                exclude_idx: int):
     """K3: project_sample + ssd_combine in one kernel, samples kept on chip.
-    src_planar (N, 3, Hs, Ws); the rest as for K1 and K2 -> cost,
-    confidence (H, W)."""
-    if not src_planar.is_cuda:
-        return cost_fused_plain(src_planar, params, dst_position, disparity, rays, dst_planar,
-                                variance, exclude_idx)
+    src_rgba (N, Hs, Ws, 4) the interleaved source stack (:func:`rgba_stack`);
+    the rest as for K1 and K2 -> cost, confidence (H, W)."""
+    if not src_rgba.is_cuda:
+        return cost_fused_plain(planar_view(src_rgba), params, dst_position, disparity, rays,
+                                dst_planar, variance, exclude_idx)
 
-    n, c, hs, ws = src_planar.shape
+    n, hs, ws, _ = src_rgba.shape
     h, w = disparity.shape
-    dev = src_planar.device
-    _check("src_planar", src_planar, dev, (n, 3, hs, ws))
+    dev = src_rgba.device
+    _check("src_rgba", src_rgba, dev, (n, hs, ws, 4))
     _check("params", params, dev, (n, PARAM_SIZE))
     _check("dst_position", dst_position, dev, (3,))
     _check("disparity", disparity, dev, (h, w))
@@ -218,8 +237,8 @@ def cost_fused(src_planar, params, dst_position, disparity, rays, dst_planar, va
     cost = torch.empty((h, w), dtype=torch.float32, device=dev)
     conf = torch.empty((h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("cost_fused", _build.load().fdt_cost_fused,
-                src_planar.data_ptr(), n, hs, ws, params.data_ptr(), dst_position.data_ptr(),
+        _launch("cost_fused", (h, w), _build.load().fdt_cost_fused,
+                src_rgba.data_ptr(), n, hs, ws, params.data_ptr(), dst_position.data_ptr(),
                 disparity.data_ptr(), rays.data_ptr(), dst_planar.data_ptr(), variance.data_ptr(),
                 h, w, int(exclude_idx), cost.data_ptr(), conf.data_ptr())
     return cost, conf
@@ -243,7 +262,7 @@ def warp_sample_planar(src_planar, coords):
     sampled = torch.empty((n, c, h, w), dtype=torch.float32, device=dev)
     valid = torch.empty((n, h, w), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        _launch("warp_sample", _build.load().fdt_warp_sample,
+        _launch("warp_sample", (h, w), _build.load().fdt_warp_sample,
                 src_planar.data_ptr(), n, c, hs, ws, coords.data_ptr(), h, w,
                 sampled.data_ptr(), valid.data_ptr())
     return sampled, valid

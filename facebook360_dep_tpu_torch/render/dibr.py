@@ -374,7 +374,7 @@ def render_view(
 
 def _render_inputs(rig: cam.Rig, colors, disparities, center):
     """Normalized float32 cameras, colors, disparities and center on one
-    device: that of ``colors`` if it is a tensor, else the default device."""
+    device: that of ``colors`` if it is a tensor, else the card."""
     dev = colors.device if torch.is_tensor(colors) else default_device()
     nrig = cam.normalize_rig(rig) if not cam.is_normalized(rig.camera(0)) else rig
     cams = nrig.cameras.to(dev, torch.float32)

@@ -16,6 +16,7 @@ from facebook360_dep_tpu_torch.core import camera as tcam
 from facebook360_dep_tpu_torch.depth import pipeline as tpipe
 from facebook360_dep_tpu_torch.depth import solver as tsolver
 from facebook360_dep_tpu_torch.ops import cost as tcost
+from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
 from torch_parity import f32, jax_f32, port_rig, rel_err, ring_rig, tt
 
@@ -86,11 +87,14 @@ def test_per_src_ssd(contexts):
 
 def test_cost_for_disparity_split_gives_same_costs(contexts, monkeypatch):
     """On CPU both size branches (fused K3 twin / K1 then K2 twins) are one
-    computation; the JAX XLA path agrees to the cancellation-amplified ulps."""
+    computation; the JAX XLA path agrees to the cancellation-amplified ulps.
+    The fused branch reads the interleaved stack, which a level context
+    holds only from FUSED_MIN_PIXELS up, so it is added here."""
     jctx, tctx, gt = contexts
     cctx = tsolver._cost_ctx(tctx, 1)
     split = tcost.cost_for_disparity(cctx, tt(gt[1]))
     monkeypatch.setattr(tcost, "FUSED_MIN_PIXELS", 0)
+    cctx = cctx._replace(src_rgba=wc.rgba_stack(cctx.src_planar.permute(0, 2, 3, 1)))
     fused = tcost.cost_for_disparity(cctx, tt(gt[1]))
     assert torch.equal(split[0], fused[0]) and torch.equal(split[1], fused[1])
     j_cost, j_conf = jcost.cost_for_disparity(jsolver._cost_ctx(jctx, 1), jnp.asarray(gt[1]))

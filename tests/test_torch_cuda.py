@@ -12,6 +12,7 @@ import torch
 
 from facebook360_dep_tpu_torch.core import camera as tcam
 from facebook360_dep_tpu_torch.depth import pipeline, solver
+from facebook360_dep_tpu_torch.ops import cost as cost_ops
 from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 from facebook360_dep_tpu_torch.render import dibr, synthetic
 
@@ -74,7 +75,8 @@ def test_ssd_combine_matches_twin(inputs):
 def test_cost_fused_equals_k1_then_k2_and_twin(inputs):
     cctx, disp, _ = inputs
     rest = (cctx.dst_planar, cctx.variance, cctx.exclude_idx)
-    c3, f3 = wc.cost_fused(*_k1(cctx, disp), *rest)
+    rgba = wc.rgba_stack(cctx.src_planar.permute(0, 2, 3, 1))
+    c3, f3 = wc.cost_fused(*_k1(cctx, disp, rgba), *rest)
     s, v = wc.project_sample(*_k1(cctx, disp))
     c12, f12 = wc.ssd_combine(s, v, *rest)
     assert torch.equal(c3, c12) and torch.equal(f3, f12)
@@ -82,6 +84,69 @@ def test_cost_fused_equals_k1_then_k2_and_twin(inputs):
     both = (c3 < FLT_MAX) & (c_p < FLT_MAX)
     assert ((c3 >= FLT_MAX) != (c_p >= FLT_MAX)).double().mean().item() < 1e-3
     assert ((c3[both] - c_p[both]).abs() / (1 + c_p[both].abs())).max().item() < 1e-4
+    with pytest.raises(ValueError, match="src_rgba"):  # the planar stack is not K3's layout
+        wc.cost_fused(*_k1(cctx, disp), *rest)
+
+
+def _level(dev, w, h, n=16):
+    """Destination 3's cost context (not the first source, so the skipped
+    self source sits inside K2's source loop) on a mixed-type distorted
+    ring of ``n`` cameras at (w, h), with a noisy candidate map."""
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=n, resolution=(w, h), mixed=True))
+    colors, gt = synthetic.render_sphere_scene(rig, (w, h), device=dev)
+    ctx = solver.make_level_context(rig, rig, colors, pipeline.generate_fov_masks(rig, (h, w), dev))
+    cctx = solver._cost_ctx(ctx, 3)
+    gen = torch.Generator(device=dev).manual_seed(w + h)
+    noise = 1.0 + 0.05 * (2 * torch.rand((h, w), generator=gen, device=dev) - 1)
+    disp = (torch.nan_to_num(gt[3], nan=1e-4) * noise).contiguous()
+    return cctx, disp
+
+
+# a ragged shape below K3's 30x14 output tile and K2's 30-pixel row, the
+# solve's coarsest level and one more coarse shape (both ragged for either
+# tile), and the finest level the solve runs K3 at
+LEVEL_SHAPES = [(29, 13), (50, 38), (61, 45), (512, 384)]
+
+
+@pytest.mark.parametrize("w,h", LEVEL_SHAPES)
+def test_ssd_combine_matches_twin_at_level_shapes(dev, w, h):
+    """K2 spreads (pixel, source) over threads and folds in source order:
+    the tolerances of chip_smoke.py (cost 1e-6 abs + 1e-4 rel on all but
+    1e-4 of the values, confidence exact), 20 sources (two chunks of 16)
+    and one channel included."""
+    for n, channels in ((16, 3), (20, 3), (16, 1)):
+        cctx, disp = _level(dev, w, h, n)
+        s, v = wc.project_sample_plain(*_k1(cctx, disp))
+        s, dst = s[:, :channels].contiguous(), cctx.dst_planar[:channels].contiguous()
+        c_k, f_k = wc.ssd_combine(s, v, dst, cctx.variance, cctx.exclude_idx)
+        c_p, f_p = wc.ssd_combine_plain(s, v, dst, cctx.variance, cctx.exclude_idx)
+        assert torch.equal(c_k >= FLT_MAX, c_p >= FLT_MAX)
+        ok = c_p < FLT_MAX
+        assert ok.double().mean().item() > 0.5
+        bad = (c_k[ok] - c_p[ok]).abs() > 1e-6 + 1e-4 * c_p[ok].abs()
+        assert bad.double().mean().item() <= 1e-4, (n, channels)
+        assert torch.equal(f_k, f_p)
+
+
+@pytest.mark.parametrize("w,h", LEVEL_SHAPES)
+def test_cost_fused_bit_identical_to_k1_then_k2_at_level_shapes(dev, w, h):
+    """K3 on the interleaved stack the level context builds (or builds here
+    below FUSED_MIN_PIXELS) == K1 then K2, bit for bit, and its twin; from
+    FUSED_MIN_PIXELS up the context's planar stack is a view, which K1
+    takes as a contiguous copy."""
+    cctx, disp = _level(dev, w, h)
+    rgba = cctx.src_rgba if cctx.src_rgba is not None else wc.rgba_stack(cctx.src_planar.permute(0, 2, 3, 1))
+    assert (cctx.src_rgba is not None) == (w * h >= cost_ops.FUSED_MIN_PIXELS)
+    rest = (cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+    c3, f3 = wc.cost_fused(*_k1(cctx, disp, rgba), *rest)
+    s, v = wc.project_sample(*_k1(cctx, disp, cctx.src_planar.contiguous()))
+    c12, f12 = wc.ssd_combine(s, v, *rest)
+    assert torch.equal(c3, c12) and torch.equal(f3, f12)
+    assert (c3 < FLT_MAX).double().mean().item() > 0.5
+    c_p, f_p = wc.cost_fused_plain(*_k1(cctx, disp), *rest)
+    assert ((c3 >= FLT_MAX) != (c_p >= FLT_MAX)).double().mean().item() < 1e-3
+    both = (c3 < FLT_MAX) & (c_p < FLT_MAX)
+    assert ((c3[both] - c_p[both]).abs() > 1e-6 + 1e-4 * c_p[both].abs()).double().mean().item() <= 1e-4
 
 
 def test_wrappers_validate_and_count(inputs):
@@ -90,6 +155,7 @@ def test_wrappers_validate_and_count(inputs):
     wc.project_sample(*_k1(cctx, disp))
     wc.project_sample_plain(*_k1(cctx, disp))
     assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0}
+    assert wc.LAUNCHES_BY_SHAPE == {("project_sample", *disp.shape): 1}
     with pytest.raises(ValueError, match="contiguous"):
         wc.project_sample(*_k1(cctx, disp.t().contiguous().t()))
     with pytest.raises(ValueError, match="dtype"):

@@ -23,6 +23,8 @@ FRAMES = ("000000", "000001", "000002")
 WIDTHS = "80,56,40"  # levels 0..2 of the 80x60 frames: 80x60, 56x42, 40x30
 CLIS = ["resize_images", "generate_foreground_masks", "temporal_bilateral_filter", "upsample_disparity",
         "layer_disparities"]
+# the CLIs that compute on a device (the card unless the caller names another)
+DEVICE_CLIS = {"generate_foreground_masks", "temporal_bilateral_filter", "upsample_disparity"}
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +70,7 @@ def _run_both(name, argv_for):
     jmod = importlib.import_module(f"facebook360_dep_tpu.cli.{name}")
     tmod = importlib.import_module(f"facebook360_dep_tpu_torch.cli.{name}")
     jmod.main(argv_for("jax"))
-    tmod.main(argv_for("torch"))
+    tmod.main(argv_for("torch"), **({"device": "cpu"} if name in DEVICE_CLIS else {}))
 
 
 def _files(root):

@@ -61,7 +61,7 @@ def test_derp_cli_matches_jax_map_to_map(project):
     root, rig, gt = project
     argv = ["--input_root", root, "--random_proposals", "0"] + ARGS
     jcli.main(argv + ["--output_root", os.path.join(root, "out_jax")])
-    est = tcli.main(argv + ["--output_root", os.path.join(root, "out_torch")])
+    est = tcli.main(argv + ["--output_root", os.path.join(root, "out_torch")], device="cpu")
     assert sorted(est.level_seconds) == [0, 1, 2]
     for level in LEVELS:
         for cam_id in rig.ids:
@@ -82,7 +82,7 @@ def test_derp_cli_default_flags_meets_ground_truth_bar(project):
 
     root, rig, gt = project
     out = os.path.join(root, "out_torch_default")
-    tcli.main(["--input_root", root, "--output_root", out, "--output_formats", "pfm,png"] + ARGS)
+    tcli.main(["--input_root", root, "--output_root", out, "--output_formats", "pfm,png"] + ARGS, device="cpu")
     for i, cam_id in enumerate(rig.ids):
         disp = _map(out, 0, cam_id)
         assert os.path.exists(imagetypes.gen_filename(out, "disparity_levels", 0, cam_id, "000000", "png"))
@@ -119,7 +119,7 @@ def test_unported_options_raise(project, tmp_path, flag):
 
     root, _, _ = project
     with pytest.raises(NotImplementedError):
-        tcli.main(["--input_root", root, "--output_root", str(tmp_path), flag] + ARGS)
+        tcli.main(["--input_root", root, "--output_root", str(tmp_path), flag] + ARGS, device="cpu")
 
 
 def test_package_never_imports_jax():

@@ -226,7 +226,7 @@ def test_derp_cli_with_foreground_masks_matches_jax(fg_project):
     root, rig, gt = fg_project
     argv = ["--input_root", root, "--use_foreground_masks", "true"] + ARGS
     jcli.main(argv + ["--output_root", os.path.join(root, "out_jax")])
-    tcli.main(argv + ["--output_root", os.path.join(root, "out_torch")])
+    tcli.main(argv + ["--output_root", os.path.join(root, "out_torch")], device="cpu")
     for level in LEVELS:
         for i, cam_id in enumerate(rig.ids):
             want = _map(os.path.join(root, "out_jax"), level, cam_id)
@@ -270,7 +270,7 @@ def test_debug_images_and_plot_matches_match_jax(fg_project, tmp_path):
     jest = jpipe.DepthEstimator(jpipe.DepthEstimatorOptions(
         output_root=str(tmp_path / "jax"), debug_dir=str(tmp_path / "jax_plot"), **opts))
     test = tpipe.DepthEstimator(tpipe.DepthEstimatorOptions(
-        output_root=str(tmp_path / "torch"), debug_dir=str(tmp_path / "torch_plot"), **opts))
+        output_root=str(tmp_path / "torch"), debug_dir=str(tmp_path / "torch_plot"), **opts), device="cpu")
     rng = np.random.RandomState(4)
     shape = (4, 60, 80)
     disp = f32(rng.rand(*shape) * 0.3 + 0.1)
@@ -309,11 +309,11 @@ def test_derp_cli_debug_outputs_and_profile_dir(fg_project, tmp_path):
 
     root, rig, _ = fg_project
     out, prof, plots = str(tmp_path / "out"), str(tmp_path / "prof"), str(tmp_path / "plots")
-    tcli.main(["--input_root", root, "--output_root", out, "--level_end", "2"] + ARGS)
+    tcli.main(["--input_root", root, "--output_root", out, "--level_end", "2"] + ARGS, device="cpu")
     tcli.main(["--input_root", root, "--output_root", out, "--save_debug_images", "true", "--level_start", "1",
                "--level_end", "1", "--debug_dir", plots, "--debug_plot_match_dst", "cam0",
                "--debug_plot_match_x", "28", "--debug_plot_match_y", "21", "--debug_plot_match_level", "1",
-               "--profile_dir", prof] + ARGS)
+               "--profile_dir", prof] + ARGS, device="cpu")
     for image_type in ("cost", "confidence", "mismatches", "disparity_levels"):
         for cam_id in rig.ids:
             assert os.path.exists(imagetypes.gen_filename(out, image_type, 1, cam_id, "000000", "png"))

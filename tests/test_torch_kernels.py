@@ -11,15 +11,19 @@ import pytest
 import torch
 
 from facebook360_dep_tpu.core import camera as jcam
+from facebook360_dep_tpu.depth import pipeline as jpipe
+from facebook360_dep_tpu.depth import solver as jsolver
 from facebook360_dep_tpu.ops import cost as jcost
 from facebook360_dep_tpu.ops import sampling as jsamp
 from facebook360_dep_tpu.ops import warp_pallas
 from facebook360_dep_tpu.render import synthetic as jsyn
 from facebook360_dep_tpu_torch.core import camera as tcam
+from facebook360_dep_tpu_torch.depth import pipeline as tpipe
+from facebook360_dep_tpu_torch.depth import solver as tsolver
 from facebook360_dep_tpu_torch.ops import cost as tcost
 from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
-from torch_parity import f32, jax_f32, rel_err, ring_rig, tt
+from torch_parity import f32, jax_f32, port_rig, rel_err, ring_rig, tt
 
 FLT_MAX = float(np.finfo(np.float32).max)
 
@@ -42,6 +46,11 @@ def _scene(w=64, h=48, n=4, seed=0):
 def _k1_args(s, src=None):
     return (tt(s["planar"] if src is None else src), tt(s["params"]), tt(np.asarray(s["cam0"].position)),
             tt(s["disp"]), tt(np.moveaxis(s["rays"], -1, 0).copy()))
+
+
+def _k3_args(s):
+    """K1's arguments with the interleaved stack K3 reads in place of the planar one."""
+    return (wc.rgba_stack(tt(s["colors"])),) + _k1_args(s)[1:]
 
 
 def test_pack_camera_params_matches_jax_layout():
@@ -163,6 +172,70 @@ def test_combine_top2_ties_keep_first_index():
     np.testing.assert_allclose(t, (0.1 + 0.8 + 1.6) / 9 / 0.5, rtol=1e-6)
 
 
+def _k2_split(biased, unbiased, valid, variance, exclude_idx):
+    """Plain torch emulation of K2's split (csrc/ssd_combine.cu): each
+    source's (b, u) maps, b = -FLT_MAX where it does not count, then one fold
+    a pixel over the sources in order (fdt::top2_fold, the self source
+    skipped, counting where b != -FLT_MAX) and fdt::top2_finish."""
+    b = torch.where(valid, biased, -FLT_MAX)
+    u = torch.where(valid, unbiased, 0.0)
+    b1 = b2 = torch.full_like(variance, -FLT_MAX)
+    u1 = u2 = total = torch.zeros_like(variance)
+    count = torch.zeros(variance.shape, dtype=torch.int64)
+    for s in range(b.shape[0]):
+        if s == exclude_idx:
+            continue
+        first = b[s] > b1
+        second = ~first & (b[s] > b2)
+        b2 = torch.where(first, b1, torch.where(second, b[s], b2))
+        u2 = torch.where(first, u1, torch.where(second, u[s], u2))
+        b1 = torch.where(first, b[s], b1)
+        u1 = torch.where(first, u[s], u1)
+        total = total + u[s]
+        count = count + (b[s] != -FLT_MAX)
+    keep = torch.clamp(count - 2, min=1).clamp(max=b.shape[0])
+    drop = count - keep
+    cost_sum = total - torch.where(drop >= 1, u1, 0.0) - torch.where(drop >= 2, u2, 0.0)
+    keepf = keep.to(torch.float32)
+    confidence = torch.clamp(variance, min=tcost.MIN_VAR)
+    enough = count >= 1
+    return (torch.where(enough, cost_sum / (keepf * keepf) / confidence, FLT_MAX),
+            torch.where(enough, confidence, 0.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_split_fold_equals_combine_top2(seed):
+    """K2's per-source results folded in source order == combine_top2 bit
+    for bit: biased SSDs drawn from five values, so most pixels hold ties
+    (the earlier source wins, as argmax does), the self source in the
+    middle, pixels where no source counts, and the explicit ties of
+    test_combine_top2_ties_keep_first_index."""
+    rng = np.random.RandomState(seed)
+    n, h, w = 7, 12, 16
+    biased = f32(rng.choice([0.5, 1.0, 2.0, 3.0, 3.0], size=(n, h, w)))
+    unbiased = f32(rng.rand(n, h, w) * biased)
+    valid = rng.rand(n, h, w) > 0.3
+    valid[:, 0, :3] = False
+    var = f32(rng.rand(h, w) * 1e-3)
+    exclude = 3
+    not_self = np.arange(n) != exclude
+    want = tcost.combine_top2(tt(biased), tt(unbiased), tt(valid & not_self[:, None, None]), tt(var))
+    got = _k2_split(tt(biased), tt(unbiased), tt(valid), tt(var), exclude)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0] == FLT_MAX).any() and (got[0] < FLT_MAX).any()
+    # the explicit ties, and the whole K2 twin on a sampled stack
+    ties = (f32([[[1.0]], [[3.0]], [[3.0]], [[3.0]], [[2.0]]]), f32([[[0.1]], [[0.2]], [[0.4]], [[0.8]], [[1.6]]]),
+            np.ones((5, 1, 1), bool), f32([[0.5]]))
+    want = tcost.combine_top2(*(tt(a) for a in ties))
+    got = _k2_split(*(tt(a) for a in ties), -1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sampled, valid, dst, var, exclude = _k2_inputs(seed=20 + seed)
+    b, u, v = tcost.ssd_planar(tt(np.moveaxis(dst, 0, -1)), tt(sampled), tt(valid))
+    want = wc.ssd_combine(tt(sampled), tt(valid), tt(dst), tt(var), exclude)
+    got = _k2_split(b, u, v, tt(var), exclude)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_k3_twin_vs_pallas_packed_interpret():
     """B3 -> B2 consumes 1/256-px-quantized coordinates and a stack packed
     at 2^-16 (G, B) / 2^-24 (R). The bias-compensated SSD is a small
@@ -173,7 +246,7 @@ def test_k3_twin_vs_pallas_packed_interpret():
     s = _scene(w=96, h=48, seed=4)
     variance = np.asarray(jsamp.rgb_variance(jnp.asarray(s["colors"][0])))
     dst = s["planar"][0]
-    cost, conf = wc.cost_fused(*_k1_args(s), tt(dst), tt(variance), 0)
+    cost, conf = wc.cost_fused(*_k3_args(s), tt(dst), tt(variance), 0)
     packed = warp_pallas.project_sample_packed(
         jnp.asarray(s["planar"]), jnp.asarray(s["params"]), s["cam0"].position, jnp.asarray(s["disp"]),
         jnp.asarray(np.moveaxis(s["rays"], -1, 0)), interpret=True, ww_max=1024, wh_max=1024)
@@ -188,24 +261,64 @@ def test_k3_twin_vs_pallas_packed_interpret():
     assert np.median(rel) < 5e-3 and np.percentile(rel, 99) < 0.05, (np.median(rel), np.percentile(rel, 99))
 
 
-def test_k3_twin_vs_xla_cost_for_disparity():
+def test_k3_twin_vs_xla_cost_for_disparity(monkeypatch):
     """Twin (K1 twin -> K2 twin) == the JAX cost_for_disparity XLA path
     (src_imgs_t=None). Costs divide by variances down to MIN_VAR and the
     bias compensation cancels, which turns float32 ulps of the projection
-    into up to ~3e-5 relative; finite sets agree."""
+    into up to ~3e-5 relative; finite sets agree. Then the solver's route
+    from FUSED_MIN_PIXELS up (lowered here to this level): the level
+    context holds the interleaved stack K3 reads, with the planar stack's
+    values and a zero pad, and cost_for_disparity through it still equals
+    the JAX XLA path on the JAX package's level context."""
     s = _scene(seed=5)
     variance = np.asarray(jsamp.rgb_variance(jnp.asarray(s["colors"][0])))
     ctx = jcost.CostContext(cam_dst=s["cam0"], src_cams=s["cams"], dst_img=jnp.asarray(s["colors"][0]),
                             src_imgs=jnp.asarray(s["colors"]), variance=jnp.asarray(variance), exclude_idx=0,
                             dst_rays=jnp.asarray(s["rays"]), src_imgs_t=None)
     j_cost, j_conf = map(np.asarray, jcost.cost_for_disparity(ctx, jnp.asarray(s["disp"])))
-    cost, conf = wc.cost_fused(*_k1_args(s), tt(s["planar"][0]), tt(variance), 0)
+    cost, conf = wc.cost_fused(*_k3_args(s), tt(s["planar"][0]), tt(variance), 0)
+    plain = wc.cost_fused_plain(*_k1_args(s), tt(s["planar"][0]), tt(variance), 0)
+    assert torch.equal(cost, plain[0]) and torch.equal(conf, plain[1])
     cost = cost.numpy()
     assert (np.isfinite(cost) & (cost < 1e30)).mean() > 0.9
     assert np.array_equal(cost >= 1e30, j_cost >= 1e30)
     ok = j_cost < 1e30
     assert rel_err(cost[ok], j_cost[ok]).max() < 1e-4
     np.testing.assert_array_equal(conf.numpy(), j_conf)
+
+    monkeypatch.setattr(tcost, "FUSED_MIN_PIXELS", 64 * 48)
+    rig = jcam.normalize_rig(ring_rig(jcam, "", n=4, resolution=(64, 48), mixed=True))
+    trig = port_rig(tcam, rig)
+    jctx = jsolver.make_level_context(rig, rig, s["colors"], jpipe.generate_fov_masks(rig, (48, 64)))
+    tctx = tsolver.make_level_context(trig, trig, tt(s["colors"]), tpipe.generate_fov_masks(trig, (48, 64)))
+    assert tctx.src_rgba.shape == (4, 48, 64, 4) and tctx.src_rgba.is_contiguous()
+    assert torch.equal(tctx.src_rgba[..., :3], tctx.src_planar.permute(0, 2, 3, 1))
+    assert not tctx.src_rgba[..., 3].any()
+    # the planar stack is a view of the interleaved one there, not a copy
+    assert tctx.src_planar.data_ptr() == tctx.src_rgba.data_ptr() and not tctx.src_planar.is_contiguous()
+    cctx = tsolver._cost_ctx(tctx, 0)
+    assert cctx.src_rgba is tctx.src_rgba and cctx.dst_planar.is_contiguous()
+    assert torch.equal(cctx.dst_planar, tt(s["planar"][0]))
+    cost, conf = tcost.cost_for_disparity(cctx, tt(s["disp"]))
+    j_cost, j_conf = map(np.asarray, jcost.cost_for_disparity(jsolver._cost_ctx(jctx, 0), jnp.asarray(s["disp"])))
+    cost = cost.numpy()
+    assert (cost < 1e30).mean() > 0.5
+    assert np.array_equal(cost >= 1e30, j_cost >= 1e30)
+    ok = j_cost < 1e30
+    assert rel_err(cost[ok], j_cost[ok]).max() < 1e-4
+    np.testing.assert_array_equal(conf.numpy(), j_conf)
+
+
+def test_level_context_interleaved_stack_only_at_k3_levels():
+    """Below FUSED_MIN_PIXELS (K1 then K2) no interleaved copy is made."""
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=4, resolution=(64, 48), mixed=True))
+    colors = torch.rand((4, 48, 64, 3), generator=torch.Generator().manual_seed(0))
+    ctx = tsolver.make_level_context(rig, rig, colors, tpipe.generate_fov_masks(rig, (48, 64)))
+    assert ctx.src_rgba is None and tsolver._cost_ctx(ctx, 1).src_rgba is None
+    assert ctx.src_planar.is_contiguous() and torch.equal(ctx.src_planar, colors.permute(0, 3, 1, 2))
+    assert torch.equal(wc.planar_view(wc.rgba_stack(colors)), ctx.src_planar)
+    rgba = wc.rgba_stack(colors.double())
+    assert rgba.dtype == torch.float32 and torch.equal(rgba[..., :3], colors) and not rgba[..., 3].any()
 
 
 def test_wrappers_on_cpu_run_twins_and_count_nothing():
@@ -214,4 +327,4 @@ def test_wrappers_on_cpu_run_twins_and_count_nothing():
     a = wc.project_sample(*_k1_args(s))
     b = wc.project_sample_plain(*_k1_args(s))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert all(v == 0 for v in wc.LAUNCHES.values())
+    assert all(v == 0 for v in wc.LAUNCHES.values()) and not wc.LAUNCHES_BY_SHAPE

@@ -40,7 +40,7 @@ def solved(tmp_path_factory):
     tcam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
     out = os.path.join(root, "out")
     tderp.main(["--input_root", root, "--output_root", out, "--min_depth_m", "1.0", "--max_depth_m", "100.0",
-                "--resolution", "64"])
+                "--resolution", "64"], device="cpu")
     return dict(root=root, color=os.path.join(root, "video/color_levels/level_0"),
                 disparity=os.path.join(out, "disparity_levels/level_0"),
                 rig=os.path.join(root, "rigs/rig_calibrated.json"))
@@ -59,7 +59,7 @@ def test_rephotography_cli_matches_jax(solved, tmp_path, caplog):
     argv = ["--color", solved["color"], "--disparity", solved["disparity"], "--rig", solved["rig"],
             "--first", "000000", "--last", "000000"]
     with caplog.at_level(logging.INFO):
-        result = tcre.main(argv + ["--output", str(tmp_path / "t")])
+        result = tcre.main(argv + ["--output", str(tmp_path / "t")], device="cpu")
     port = _total_mssim(caplog.records)
     caplog.clear()
     with caplog.at_level(logging.INFO):
@@ -78,7 +78,7 @@ def test_simple_mesh_renderer_matches_jax(solved, tmp_path, fmt):
     flip where a coordinate lands within an ulp of a pixel edge)."""
     argv = ["--rig", solved["rig"], "--color", solved["color"], "--disparity", solved["disparity"],
             "--format", fmt, "--width", "64", "--height", "32"]
-    records = tsmr.main(argv + ["--output", str(tmp_path / "t")])
+    records = tsmr.main(argv + ["--output", str(tmp_path / "t")], device="cpu")
     jsmr.main(argv + ["--output", str(tmp_path / "j")])
     assert os.listdir(tmp_path / "t") == os.listdir(tmp_path / "j") == ["000000.png"]
     got = cv2.imread(str(tmp_path / "t/000000.png"), cv2.IMREAD_UNCHANGED)

@@ -64,7 +64,8 @@ def test_rephotography_scores_match_jax():
     colors, gt = jsyn.render_sphere_scene(rig, (48, 36), radius=5.0)
     colors, gt = np.array(colors, np.float32), np.array(gt, np.float32)
     j_scores, j_total = jcre.rephotography_scores(rig, colors, gt, method="MSSIM", face_size=24)
-    t_scores, t_total = tcre.rephotography_scores(port_rig(tcam, rig), colors, gt, method="MSSIM", face_size=24)
+    t_scores, t_total = tcre.rephotography_scores(port_rig(tcam, rig), tt(colors), tt(gt), method="MSSIM",
+                                                   face_size=24)
     assert np.all(t_total > 0.6)
     np.testing.assert_allclose(t_total, j_total, atol=5e-4)
     np.testing.assert_allclose(np.stack(t_scores), np.stack(j_scores), atol=5e-4)
