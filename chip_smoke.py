@@ -7,22 +7,26 @@
 2. builds the CUDA kernels of facebook360_dep_tpu_torch/csrc from source;
 3. holds each kernel against its plain PyTorch twin on the card, on a
    16-camera rig of all four camera types with distortion, at every level
-   shape the solve launches it at (K1/K2 at the seven widths 256..50, K3
-   at 2048, 1024 and 512, through ops/cost.py::cost_for_disparity; K3 also
-   against K1 -> K2 bit for bit), and times each there two ways with CUDA
-   events: ``ms``, one launch from the host as the solve makes it, and
-   ``graph_ms``, the device time of one launch inside a CUDA graph, which
-   leaves the host's launch cost out; beside them the roofline bound from
-   the bytes and FLOPs of its shapes and the share bound / graph_ms; the
-   twins are timed at 256x192 and 2048x1536;
+   shape the solve launches it at (K1/K2 at the seven widths 256..50, K1
+   sampling all 16 destination maps in one launch, with 3 channels and
+   with 1 over a NaN-holding disparity stack; K3 at 2048, 1024 and 512;
+   K3 also against K1 -> K2 bit for bit, and below K3 the solver's batched
+   cost_for_disparity against its 16 single-destination calls bit for
+   bit), and times each there two ways with CUDA events: ``ms``, one
+   launch from the host as the solve makes it, and ``graph_ms``, the
+   device time of one launch inside a CUDA graph, which leaves the host's
+   launch cost out; beside them the roofline bound from the bytes and
+   FLOPs of its shapes and the share bound / graph_ms; the twins are timed
+   at 256x192 and 2048x1536;
 4. renders the 16-camera sphere scene (the JAX bench's config 2 rig) at the
    ten pyramid widths 2048..50 with the port, writes it as a project tree,
    and runs the port's derp_cli on it with default solver flags;
 5. checks that every kernel was launched by that run and that the level-0
    disparity is within 5% median relative error of the ground truth; the
    launches it counted at each level shape complete the per-level table
-   (launches a solve, launches x (graph_ms - bound)), and every launch of
-   K1-K3 must fall on a shape of the table;
+   (launches a solve, launches x (graph_ms - bound)), and each level must
+   show the batched solve's count (K1 11 at each of 256..60 and 150 at 50,
+   K2 16 times that, K3 176 at each of its levels);
 6. holds K4 (warp_sample) against its twin on the render gather of one
    cubemap at face 1536: the 16 cameras' level-0 colors and derp_cli's
    disparity (with a NaN patch) sampled at the coordinates render_view
@@ -58,14 +62,22 @@ solve under torch.profiler and writes their kernel tables (device and host
 time by operator) to DIR/derp_profile.txt, DIR/rephoto_profile.txt and
 DIR/derp_foreground_profile.txt.
 
+    python3 chip_smoke.py --solve ROOT OUT [--reference OUT0] [--profile DIR]
+                          [--mismatches_start_level L]
+
+builds the kernels, writes the sphere scene's project tree to ROOT unless
+it is there, runs derp_cli on it into OUT (with the mismatch stage at
+levels L..0 when L >= 0) and prints one JSON line ``{"solve": ...}`` (wall
+time, level times, launches, peak memory; with ``--reference``, OUT's
+level-0 maps against OUT0's): two checkouts, each with this script,
+compared on one tree in one call.
+
     python3 chip_smoke.py --kernels-only
 
 builds the kernels and runs step 3 alone: the checks and the per-level
 times and bounds, without the launch counts of a solve, printed as one JSON
 object ``{"kernel_table": ...}`` (no ``ok`` line: the main path did not
-run). It reaches the kernels through the port's own functions only, so it
-also runs in a checkout of an earlier version for comparing two of them in
-one call (copy this script into the other one).
+run).
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ import tempfile
 import time
 
 WIDTHS = [2048, 1024, 512, 256, 200, 128, 100, 80, 60, 50]
+TWIN_WIDTH = 256  # the level below K3 whose checks are printed in full and whose twins are timed
 NUM_CAMERAS = 16
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARP_PALLAS = "facebook360_dep_tpu/ops/warp_pallas.py"
@@ -143,9 +156,10 @@ def mixed_rig(resolution):
     return cam.Rig(cameras=cam.stack_cameras(cams), ids=tuple(ids), groups=("",) * NUM_CAMERAS)
 
 
-def main_path_inputs(width: int, dev):
-    """The cost context of destination 0 and a noisy candidate disparity map
-    at one pyramid width, as the solver builds them."""
+def level_inputs(width: int, dev):
+    """One level of the solve at a pyramid width, as the solver builds it
+    (all 16 cameras as destinations), noisy candidate maps for its 16
+    destinations, the ground truth and the FOV masks."""
     import torch
 
     from facebook360_dep_tpu_torch.core import camera as cam
@@ -158,11 +172,10 @@ def main_path_inputs(width: int, dev):
     nrig = cam.normalize_rig(rig)
     fov = pipeline.generate_fov_masks(nrig, (h, width), dev)
     ctx = solver.make_level_context(nrig, nrig, colors, fov, full_height=1536)
-    cctx = solver._cost_ctx(ctx, 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    noise = 1.0 + 0.05 * (2.0 * torch.rand((h, width), generator=gen, device=dev) - 1.0)
-    disp = (torch.nan_to_num(gt[0], nan=1e-4) * noise).contiguous()
-    return cctx, disp, gt, fov
+    noise = 1.0 + 0.05 * (2.0 * torch.rand((NUM_CAMERAS, h, width), generator=gen, device=dev) - 1.0)
+    disp = (torch.nan_to_num(gt, nan=1e-4) * noise).contiguous()
+    return ctx, disp, gt, fov
 
 
 def compare(name, kernel, plain, atol, rtol, max_outlier_frac, quiet=False):
@@ -221,11 +234,14 @@ def roofline(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(n, c, hs, ws, h, w):
-    """(bytes, FLOPs) of one K1 call: the source stack, cameras, disparity
-    and rays read once, the samples and validity written once."""
+def k1_work(n, c, hs, ws, h, w, d):
+    """(bytes, FLOPs) of sampling d destination maps (one launch): the
+    sources' C channels (not the pad the kernel's layout adds), cameras,
+    positions, disparities and rays read once, the samples and validity
+    written once."""
     hw = h * w
-    return 4 * n * c * hs * ws + n * PARAM_BYTES + 12 + 16 * hw + 4 * n * c * hw + n * hw, n * hw * k1_flops(c)
+    return (4 * n * c * hs * ws + n * PARAM_BYTES + d * (12 + 16 * hw) + d * n * (4 * c + 1) * hw,
+            d * n * hw * k1_flops(c))
 
 
 def k2_work(n, c, h, w):
@@ -281,10 +297,18 @@ def level_row(name, h, w, fn, work, reps, inner):
     return row
 
 
+# cost evaluations of every level below the coarsest with derp_cli's
+# default flags: the start map, 2 random proposals, the 8-candidate star
+EVALS_FINE = 1 + 2 + 8
+NUM_DEPTHS = 150  # the coarsest level's sweep
+
+
 def count_level_launches(checks, by_shape, totals):
     """Fill each per-level row's launches a solve from the solve's counts
-    by (kernel, H, W), and launches x (graph_ms - bound). Raises if a
-    level of the table saw no launch, or a launch fell outside the table."""
+    by (kernel, H, W), and launches x (graph_ms - bound). Raises unless
+    every level saw the launches the batched solve makes there (K1 one a
+    cost evaluation of all 16 maps, K2 and K3 one a map and evaluation) and
+    no launch fell outside the table."""
     for name in ("project_sample", "ssd_combine", "cost_fused"):
         rows = checks[name]["levels"]
         for row in rows:
@@ -292,8 +316,10 @@ def count_level_launches(checks, by_shape, totals):
             row["lost_ms_per_solve"] = n * (row["graph_ms"] - row["bound_ms"])
             log(f"  {name} {row['shape']}: {n} launches a solve, launches x (graph_ms - bound) "
                 f"{row['lost_ms_per_solve']:.2f} ms")
-            if n <= 0:
-                raise AssertionError(f"{name}: the solve never launched it at {row['shape']}")
+            evals = NUM_DEPTHS if row["w"] == WIDTHS[-1] else EVALS_FINE
+            want = evals if name == "project_sample" else NUM_CAMERAS * evals
+            if n != want:
+                raise AssertionError(f"{name}: {n} launches at {row['shape']}, expected {want}")
         counted = sum(row["launches_per_solve"] for row in rows)
         if counted != totals[name]:
             raise AssertionError(f"{name}: {counted} launches at the table's shapes, {totals[name]} in all")
@@ -303,13 +329,17 @@ def check_kernels(dev):
     """K1-K3 against their twins, and K3 against K1 -> K2 bit for bit, at
     every level shape the sphere solve launches them at (K3 from 512x384
     up, K1 and K2 below), each timed with CUDA events and set against its
-    roofline. Tolerances: the kernels and twins round every product alike
-    (-fmad=false); what is left is atan2f/sqrt/exp last-ulp noise, which
-    flips validity at a sensor or FOV edge for a few pixels and, through the
-    bias compensation's cancellation and the drop-two-worst choice, moves a
-    few costs."""
+    roofline: K1 as one launch sampling all 16 destination maps, K2 and K3
+    as one launch for one map.
+    Below K3 the solver's batched cost must equal the 16 single-destination
+    calls bit for bit. Tolerances: the kernels and twins round every
+    product alike (-fmad=false); what is left is atan2f/sqrt/exp last-ulp
+    noise, which flips validity at a sensor or FOV edge for a few pixels
+    and, through the bias compensation's cancellation and the
+    drop-two-worst choice, moves a few costs."""
     import torch
 
+    from facebook360_dep_tpu_torch.depth import solver
     from facebook360_dep_tpu_torch.ops import cost as cost_ops
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
@@ -320,22 +350,44 @@ def check_kernels(dev):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         results[name]["levels"].append(row)
 
-    # ---- K1 / K2 at each level below FUSED_MIN_PIXELS, 16 sources ----
-    log("K1 project_sample (C=3) and K2 ssd_combine, every level of the solve below K3:")
+    # ---- K1 / K2 at each level below FUSED_MIN_PIXELS, 16 maps x 16 sources ----
+    log("K1 project_sample (C=3 and C=1, all 16 maps) and K2 ssd_combine, every level of the solve below K3:")
     for width in [w for w in WIDTHS if w * height(w) < cost_ops.FUSED_MIN_PIXELS]:
-        cctx, disp, gt, fov = main_path_inputs(width, dev)
-        n, c, hs, ws = cctx.src_planar.shape
-        h, w = disp.shape
-        quiet = width != 256
-        k1_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays)
-        s_k, v_k = wc.project_sample(*k1_args)
-        s_p, v_p = wc.project_sample_plain(*k1_args)
+        ctx, disp, gt, fov = level_inputs(width, dev)
+        cctx = solver.cost_context(ctx)
+        n, hs, ws, _ = ctx.src_rgba.shape
+        c = 3
+        d, h, w = disp.shape
+        quiet = width != TWIN_WIDTH
+        planar = wc.planar_view(ctx.src_rgba)
+        rest = (ctx.src_params, ctx.dst_cams.position, disp, ctx.dst_rays)
+        s_k, v_k = wc.project_sample(ctx.src_rgba, *rest)
+        s_p, v_p = wc.project_sample_plain(planar, *rest)
         torch.cuda.synchronize()
         compare_validity(f"K1 {w}x{h} valid", v_k, v_p, 1e-4, quiet)
-        both = (v_k & v_p)[:, None].expand_as(s_k)
+        both = (v_k & v_p)[:, :, None].expand_as(s_k)
         err1 = compare(f"K1 {w}x{h} sampled", s_k[both], s_p[both], 1e-5, 0.0, 1e-4, quiet)
-        # K2 on the twin's samples
-        k2_args = (s_p, v_p, cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+        # C=1 on a NaN-holding disparity stack, as handle_mismatches samples it
+        stack = torch.where(fov, gt, float("nan"))[:, None].clone()
+        stack[:, :, :8, :8] = float("nan")
+        d_k, dv_k = wc.project_sample_planes(stack, *rest)
+        d_p, dv_p = wc.project_sample_plain(stack, *rest)
+        torch.cuda.synchronize()
+        compare_validity(f"K1 C=1 {w}x{h} valid", dv_k, dv_p, 1e-4, quiet)
+        b1 = dv_k & dv_p
+        err_c1 = compare(f"K1 C=1 {w}x{h} sampled (NaN taps)", d_k[:, :, 0][b1], d_p[:, :, 0][b1], 1e-7, 1e-5, 1e-4,
+                         quiet)
+        # the solver's batched cost against its 16 single-destination calls
+        cost, conf = cost_ops.cost_for_disparity(cctx, disp)
+        for i in range(d):
+            one = solver.cost_context(solver.select_destinations(ctx, [i]))
+            c1, f1 = cost_ops.cost_for_disparity(one, disp[i:i + 1])
+            if not (torch.equal(cost[i:i + 1], c1) and torch.equal(conf[i:i + 1], f1)):
+                raise AssertionError(f"batched cost at {w}x{h}: destination {i} differs from its own call")
+        if not quiet:
+            log(f"  batched cost_for_disparity {w}x{h} bit-identical to the {d} single-destination calls")
+        # K2 on the twin's samples of destination 0
+        k2_args = (s_p[0], v_p[0], cctx.dst_planar[0], cctx.variance[0], cctx.exclude_idx[0])
         c_k, f_k = wc.ssd_combine(*k2_args)
         c_p, f_p = wc.ssd_combine_plain(*k2_args)
         torch.cuda.synchronize()
@@ -343,48 +395,41 @@ def check_kernels(dev):
         fin = (c_k < flt_max) & (c_p < flt_max)
         err2 = compare(f"K2 {w}x{h} cost", c_k[fin], c_p[fin], 1e-6, 1e-4, 1e-4, quiet)
         compare(f"K2 {w}x{h} confidence", f_k, f_p, 0.0, 0.0, 0.0, quiet)
-        row1 = level_row("K1", h, w, lambda: wc.project_sample(*k1_args), k1_work(n, c, hs, ws, h, w), 20, 50)
+        del s_k, v_k, d_k, dv_k, d_p, dv_p, cost, conf
+        row1 = level_row("K1 (16 maps)", h, w, lambda: wc.project_sample(ctx.src_rgba, *rest),
+                         k1_work(n, c, hs, ws, h, w, d), 20, 20)
         row2 = level_row("K2", h, w, lambda: wc.ssd_combine(*k2_args), k2_work(n, c, h, w), 20, 50)
-        record("project_sample", err1, row1)
+        record("project_sample", max(err1, err_c1), row1)
         record("ssd_combine", err2, row2)
-        if width == 256:  # the representative shape: plain twins' times
-            pms1 = cuda_time_ms(lambda: wc.project_sample_plain(*k1_args), 5)
+        if width == TWIN_WIDTH:  # the representative shape: plain twins' times
+            pms1 = cuda_time_ms(lambda: wc.project_sample_plain(planar, *rest), 3, warmup=1)
             pms2 = cuda_time_ms(lambda: wc.ssd_combine_plain(*k2_args), 5)
-            log(f"  plain twins at {w}x{h}: K1 {pms1:.4f} ms, K2 {pms2:.4f} ms")
+            ms_c1 = cuda_time_ms(lambda: wc.project_sample_planes(stack, *rest), 20)
+            pms_c1 = cuda_time_ms(lambda: wc.project_sample_plain(stack, *rest), 3, warmup=1)
+            log(f"  plain twins at {w}x{h}: K1 {pms1:.4f} ms (16 maps), K2 {pms2:.4f} ms; "
+                f"K1 C=1 (16 maps) kernel {ms_c1:.4f} ms from the host, plain {pms_c1:.4f} ms")
             results["project_sample"].update(ms=row1["ms"], graph_ms=row1["graph_ms"], plain_ms=pms1,
-                                             shape=f"{w}x{h}")
+                                             shape=f"{w}x{h}", maps_a_call=d, c1_max_abs_err=err_c1,
+                                             c1_ms=ms_c1, c1_plain_ms=pms_c1)
             results["ssd_combine"].update(ms=row2["ms"], graph_ms=row2["graph_ms"], plain_ms=pms2,
                                           shape=f"{w}x{h}")
-            # C=1 on a NaN-holding disparity stack, as handle_mismatches samples it
-            stack = torch.where(fov, gt, float("nan"))[:, None].clone()
-            stack[:, :, :8, :8] = float("nan")
-            k1c1 = (stack.contiguous(),) + k1_args[1:]
-            d_k, dv_k = wc.project_sample(*k1c1)
-            d_p, dv_p = wc.project_sample_plain(*k1c1)
-            torch.cuda.synchronize()
-            log(f"K1 project_sample C=1 ({n} x {w}x{h}, NaN taps):")
-            compare_validity("valid", dv_k, dv_p, 1e-4)
-            b1 = dv_k & dv_p
-            err_c1 = compare("sampled", d_k[:, 0][b1], d_p[:, 0][b1], 1e-7, 1e-5, 1e-4)
-            ms_c1 = cuda_time_ms(lambda: wc.project_sample(*k1c1), 20)
-            pms_c1 = cuda_time_ms(lambda: wc.project_sample_plain(*k1c1), 5)
-            log(f"  time: kernel {ms_c1:.4f} ms a launch, plain {pms_c1:.4f} ms")
-            results["project_sample"].update(c1_max_abs_err=err_c1, c1_ms=ms_c1, c1_plain_ms=pms_c1)
-            results["project_sample"]["max_abs_err"] = max(results["project_sample"]["max_abs_err"], err_c1)
-        del cctx, s_k, s_p, v_k, v_p
+        del ctx, cctx, s_p, v_p
+        torch.cuda.empty_cache()
 
-    # ---- K3 at each level from FUSED_MIN_PIXELS up, 16 sources, through
-    # the solve's own cost function; the context's planar stack is a view
-    # of the one K3 reads, which K1 takes as a contiguous copy ----
+    # ---- K3 at each level from FUSED_MIN_PIXELS up, 16 sources, one map;
+    # K1 and K3 read the context's interleaved stack ----
     log("K3 cost_fused, every level of the solve from FUSED_MIN_PIXELS up:")
     for width in [w for w in WIDTHS if w * height(w) >= cost_ops.FUSED_MIN_PIXELS]:
-        cctx, disp, gt, fov = main_path_inputs(width, dev)
-        n, _, hs, ws = cctx.src_planar.shape
-        h, w = disp.shape
-        c_k, f_k = cost_ops.cost_for_disparity(cctx, disp)
-        s12, v12 = wc.project_sample(cctx.src_planar.contiguous(), cctx.src_params, cctx.cam_dst.position, disp,
-                                     cctx.dst_rays)
-        c_12, f_12 = wc.ssd_combine(s12, v12, cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+        ctx, disp, gt, fov = level_inputs(width, dev)
+        cctx = solver.cost_context(ctx)
+        n, hs, ws, _ = ctx.src_rgba.shape
+        h, w = disp.shape[1:]
+        one = (ctx.src_params, ctx.dst_cams.position[0], disp[0], ctx.dst_rays[0])
+        dst0 = (cctx.dst_planar[0], cctx.variance[0], cctx.exclude_idx[0])
+        k3_args = (ctx.src_rgba,) + one + dst0
+        c_k, f_k = wc.cost_fused(*k3_args)
+        s12, v12 = wc.project_sample(ctx.src_rgba, *one)
+        c_12, f_12 = wc.ssd_combine(s12, v12, *dst0)
         del s12, v12
         torch.cuda.synchronize()
         same = bool(torch.equal(c_k, c_12) and torch.equal(f_k, f_12))
@@ -393,8 +438,7 @@ def check_kernels(dev):
             compare(f"K3 {w}x{h} cost vs K1 -> K2", c_k, c_12, 0.0, 0.0, 0.0)
         err = 0.0
         if width == WIDTHS[0]:  # the twin at full width
-            plain_args = (cctx.src_planar, cctx.src_params, cctx.cam_dst.position, disp, cctx.dst_rays,
-                          cctx.dst_planar, cctx.variance, cctx.exclude_idx)
+            plain_args = (wc.planar_view(ctx.src_rgba),) + one + dst0
             c_p, f_p = wc.cost_fused_plain(*plain_args)
             torch.cuda.synchronize()
             compare_validity("K3 cost finite", c_k < flt_max, c_p < flt_max, 1e-4)
@@ -405,12 +449,11 @@ def check_kernels(dev):
             log(f"  plain twin at {w}x{h}: {pms:.4f} ms")
             results["cost_fused"].update(plain_ms=pms, shape=f"{w}x{h}")
             del c_p, f_p
-        row = level_row("K3", h, w, lambda: cost_ops.cost_for_disparity(cctx, disp), k3_work(n, hs, ws, h, w),
-                        20, 10)
+        row = level_row("K3", h, w, lambda: wc.cost_fused(*k3_args), k3_work(n, hs, ws, h, w), 20, 10)
         record("cost_fused", err, row)
         if width == WIDTHS[0]:
             results["cost_fused"].update(ms=row["ms"], graph_ms=row["graph_ms"])
-        del cctx, c_k, f_k, c_12, f_12
+        del ctx, cctx, c_k, f_k, c_12, f_12, k3_args
         torch.cuda.empty_cache()
     results["cost_fused"]["bit_identical_to_k1_k2"] = True  # at every level: a difference raises above
     for name, r in results.items():
@@ -568,6 +611,60 @@ def write_project(root: str, dev, widths=WIDTHS):
     os.makedirs(os.path.join(root, "rigs"), exist_ok=True)
     cam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
     return rig, gt0
+
+
+def run_solve(root: str, out_root: str, profile_dir: str, dev, mismatches_start_level: int = -1):
+    """The port's derp_cli on the project tree at ``root`` with default
+    solver flags (but ``--mismatches_start_level``), timed from main() to
+    the last map written; returns (seconds, the estimator, launches by
+    kernel, launches by (kernel, H, W))."""
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import derp_cli
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    torch.cuda.reset_peak_memory_stats()
+    wc.reset_launch_counts()
+    t = time.time()
+    with profiled(profile_dir, "derp"):
+        est = derp_cli.main([
+            "--input_root", root, "--output_root", out_root,
+            "--min_depth_m", "1", "--max_depth_m", "100", "--resolution", str(WIDTHS[0]),
+            "--mismatches_start_level", str(mismatches_start_level),
+        ], device=dev)
+        torch.cuda.synchronize()
+    total = time.time() - t
+    launches, by_shape = dict(wc.LAUNCHES), dict(wc.LAUNCHES_BY_SHAPE)
+    log(f"derp_cli: {total:.2f} s for {NUM_CAMERAS} destination maps, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for level in sorted(est.level_seconds, reverse=True):
+        w, h = est.level_sizes[level]
+        log(f"  level {level} ({w}x{h}): {est.level_seconds[level]:.3f} s")
+    log(f"kernel launches in the derp_cli run: {launches}")
+    return total, est, launches, by_shape
+
+
+def level0_maps(out_root: str, ids):
+    from facebook360_dep_tpu_torch.core import imagetypes
+
+    return [imagetypes.gen_filename(out_root, "disparity_levels", 0, cam_id, "000000", "pfm") for cam_id in ids]
+
+
+def compare_solves(out_root: str, reference: str, ids):
+    """Level-0 maps of two solves of one project tree: byte-identical
+    files, and the share of pixels whose values differ (NaN = NaN)."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.core import io
+
+    files = list(zip(level0_maps(out_root, ids), level0_maps(reference, ids)))
+    same_bytes = all(open(a, "rb").read() == open(b, "rb").read() for a, b in files)
+    a = np.stack([io.read_disparity(f) for f, _ in files])
+    b = np.stack([io.read_disparity(f) for _, f in files])
+    differ = (a != b) & ~(np.isnan(a) & np.isnan(b))
+    diff = np.abs(a - b)[differ & np.isfinite(a) & np.isfinite(b)]
+    return dict(byte_identical=same_bytes, differing_share=float(differ.mean()),
+                max_abs_diff=float(diff.max()) if diff.size else 0.0)
 
 
 def check_level0(out_root: str, rig, gt):
@@ -832,9 +929,10 @@ def profiled(out_dir, name):
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
     # device-side events only: an operator's row repeats its kernels' time
-    busy_us = sum(e.self_device_time_total for e in averages
-                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
-    log(f"profile: device busy {busy_us / 1e6:.3f} s (sum of kernel self time)")
+    device = [e for e in averages if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in device)
+    log(f"profile: device busy {busy_us / 1e6:.3f} s (sum of kernel self time), "
+        f"{sum(e.count for e in device)} device events (kernels, copies, fills)")
     log("\n".join(table.splitlines()[:30]))
 
 
@@ -844,6 +942,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     parser.add_argument("--profile", default="",
                         help="profile the derp_cli, rephotography and foreground-solve runs; write the tables here")
+    parser.add_argument("--solve", nargs=2, metavar=("ROOT", "OUT"),
+                        help="write the sphere scene's project tree to ROOT unless it is there, run derp_cli on it "
+                             "into OUT (timed; profiled with --profile), print one JSON line and stop")
+    parser.add_argument("--reference", default="",
+                        help="with --solve: the OUT of an earlier solve of ROOT, whose level-0 maps OUT's are held to")
+    parser.add_argument("--mismatches_start_level", type=int, default=-1,
+                        help="with --solve: derp_cli's flag (the mismatch stage at levels L..0; -1, its default, "
+                             "skips it)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="build K1-K4, run the K1-K3 checks and per-level times (step 3), print them and stop")
     args = parser.parse_args(argv)
@@ -852,9 +958,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a GPU",
               file=sys.stderr)
         return 1
-    from facebook360_dep_tpu_torch.cli import derp_cli
     from facebook360_dep_tpu_torch.ops import _build
-    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -872,6 +976,22 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
+    if args.solve:  # one timed solve, for comparing two checkouts in one call
+        from facebook360_dep_tpu_torch.core import camera as cam
+
+        root, out_root = args.solve
+        if not os.path.exists(os.path.join(root, "rigs/rig_calibrated.json")):
+            write_project(root, dev)
+        seconds, est, launches, _ = run_solve(root, out_root, args.profile, dev, args.mismatches_start_level)
+        result = dict(solve_s=seconds, mismatches_start_level=args.mismatches_start_level, levels={str(k): v for k, v in sorted(est.level_seconds.items())},
+                      launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if args.reference:
+            result["against_reference"] = compare_solves(
+                out_root, args.reference, cam.load_rig(os.path.join(root, "rigs/rig_calibrated.json")).ids)
+        log(smi)
+        log(json.dumps({"solve": result}))
+        return 0
+
     t = time.time()
     checks = check_kernels(dev)
     log(f"kernel checks: {time.time() - t:.1f} s")
@@ -885,22 +1005,7 @@ def main(argv=None) -> int:
         rig, gt0 = write_project(root, dev)
         log(f"scene rendered and written ({len(WIDTHS)} levels x {NUM_CAMERAS} cameras): {time.time() - t:.1f} s")
         out_root = os.path.join(root, "out")
-        wc.reset_launch_counts()
-        t = time.time()
-        with profiled(args.profile, "derp"):
-            est = derp_cli.main([
-                "--input_root", root, "--output_root", out_root,
-                "--min_depth_m", "1", "--max_depth_m", "100", "--resolution", "2048",
-            ], device=dev)
-            torch.cuda.synchronize()
-        total = time.time() - t
-        launches, by_shape = dict(wc.LAUNCHES), dict(wc.LAUNCHES_BY_SHAPE)
-        log(f"derp_cli: {total:.2f} s for {NUM_CAMERAS} destination maps, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        for level in sorted(est.level_seconds, reverse=True):
-            w, h = est.level_sizes[level]
-            log(f"  level {level} ({w}x{h}): {est.level_seconds[level]:.3f} s")
-        log(f"kernel launches in the derp_cli run: {launches}")
+        total, est, launches, by_shape = run_solve(root, out_root, args.profile, dev)
         missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched by the main path: {missing}")

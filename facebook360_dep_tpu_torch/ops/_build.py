@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (argtypes); each returns a cudaError_t as int
 _SIGNATURES = {
-    "fdt_project_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "fdt_project_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "fdt_ssd_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "fdt_cost_fused": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "fdt_warp_sample": (_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P),

@@ -2,16 +2,17 @@
 
 Port of ``facebook360_dep_tpu/ops/warp_pallas.py``'s kernels:
 
-======================  ==========================================  ==========================
-wrapper                 replaces (TPU kernel)                       source
-======================  ==========================================  ==========================
-``project_sample``      ``project_sample_planar_v4``                ``csrc/project_sample.cu``
-``ssd_combine``         ``ssd_combine``                             ``csrc/ssd_combine.cu``
-``cost_fused``          ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
-``warp_sample_planar``  ``warp_sample_planar``                      ``csrc/warp_sample.cu``
-======================  ==========================================  ==========================
+=========================  ==========================================  ==========================
+wrapper                    replaces (TPU kernel)                       source
+=========================  ==========================================  ==========================
+``project_sample``         ``project_sample_planar_v4`` (colors)       ``csrc/project_sample.cu``
+``project_sample_planes``  ``project_sample_planar_v4`` (1-2 planes)   ``csrc/project_sample.cu``
+``ssd_combine``            ``ssd_combine``                             ``csrc/ssd_combine.cu``
+``cost_fused``             ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
+``warp_sample_planar``     ``warp_sample_planar``                      ``csrc/warp_sample.cu``
+=========================  ==========================================  ==========================
 
-The first three carry the depth solve; ``warp_sample_planar`` carries the
+The first four carry the depth solve; ``warp_sample_planar`` carries the
 render gather (``render/dibr.py::render_view``).
 
 Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
@@ -89,7 +90,16 @@ def unpack_camera_params(params: torch.Tensor) -> cam.Camera:
 
 def project_sample_plain(src_planar, params, dst_position, disparity, rays):
     """K1's twin: cost.reproject_rays + sampling.bilinear_sample, zeroed
-    where invalid. Returns sampled (N, C, H, W) and valid (N, H, W) bool."""
+    where invalid. One destination (dst_position (3,), disparity (H, W),
+    rays (3, H, W)) -> sampled (N, C, H, W) and valid (N, H, W) bool; D of
+    them ((D, 3), (D, H, W), (D, 3, H, W)) -> (D, N, C, H, W), (D, N, H, W),
+    one destination at a time, so that a batch gives the bits of its
+    destinations' single calls (the CPU's vectorized atan2 may differ from
+    its scalar tail by an ulp, and where the tail falls depends on the
+    tensor's size)."""
+    if dst_position.ndim == 2:
+        outs = [project_sample_plain(src_planar, params, *one) for one in zip(dst_position, disparity, rays)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     n, c, hs, ws = src_planar.shape
     coords, valid = cost_ops.reproject_rays(
         dst_position, rays, unpack_camera_params(params), disparity, (hs, ws))
@@ -152,31 +162,60 @@ def _launch(kernel: str, hw: tuple[int, int], fn, *args):
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
-def project_sample(src_planar, params, dst_position, disparity, rays):
-    """K1: project every destination pixel at ``disparity`` into each source
-    and sample it. src_planar (N, C, Hs, Ws) f32 (C in 1..3), params (N, 24),
-    dst_position (3,), disparity (H, W), rays (3, H, W) -> sampled
-    (N, C, H, W) (0 where invalid), valid (N, H, W) bool."""
+def project_sample(src_rgba, params, dst_position, disparity, rays):
+    """K1 on the colors: project every pixel of D destination maps at
+    ``disparity`` into each source and sample its three colors there, one
+    launch for all D maps.
+
+    src_rgba (N, Hs, Ws, 4) the interleaved source stack (:func:`rgba_stack`,
+    one 16-byte load a tap); params (N, 24); dst_position (D, 3), disparity
+    (D, H, W), rays (D, 3, H, W) -> sampled (D, N, 3, H, W) (0 where
+    invalid), valid (D, N, H, W) bool. With dst_position (3,), disparity
+    (H, W) and rays (3, H, W) it is one destination (D = 1) and returns
+    (N, 3, H, W), (N, H, W)."""
+    if not src_rgba.is_cuda:
+        return project_sample_plain(planar_view(src_rgba), params, dst_position, disparity, rays)
+    n, hs, ws, _ = src_rgba.shape
+    _check("src_rgba", src_rgba, src_rgba.device, (n, hs, ws, 4))
+    return _project_sample(src_rgba, 3, params, dst_position, disparity, rays)
+
+
+def project_sample_planes(src_planar, params, dst_position, disparity, rays):
+    """K1 on one or two channel planes, src_planar (N, C, Hs, Ws) f32, C in
+    1..2 (the mismatch stage samples the cameras' disparity maps, C = 1);
+    the rest and the results as for :func:`project_sample`, with C
+    channels."""
     if not src_planar.is_cuda:
         return project_sample_plain(src_planar, params, dst_position, disparity, rays)
-
     n, c, hs, ws = src_planar.shape
-    h, w = disparity.shape
-    dev = src_planar.device
-    if not 1 <= c <= 3:
-        raise ValueError(f"project_sample: C={c}, expected 1..3")
-    _check("src_planar", src_planar, dev, (n, c, hs, ws))
+    if not 1 <= c <= 2:
+        raise ValueError(f"project_sample_planes: C={c}, expected 1..2 (colors: project_sample)")
+    _check("src_planar", src_planar, src_planar.device, (n, c, hs, ws))
+    return _project_sample(src_planar, c, params, dst_position, disparity, rays)
+
+
+def _project_sample(src, c, params, dst_position, disparity, rays):
+    """K1's launch on a checked source stack of C channels (C = 3: the
+    interleaved stack, else planes)."""
+    single = dst_position.ndim == 1
+    if single:
+        dst_position, disparity, rays = dst_position[None], disparity[None], rays[None]
+    n = src.shape[0]
+    hs, ws = src.shape[1:3] if c == 3 else src.shape[2:]
+    d = dst_position.shape[0]
+    h, w = disparity.shape[-2:]
+    dev = src.device
     _check("params", params, dev, (n, PARAM_SIZE))
-    _check("dst_position", dst_position, dev, (3,))
-    _check("disparity", disparity, dev, (h, w))
-    _check("rays", rays, dev, (3, h, w))
-    sampled = torch.empty((n, c, h, w), dtype=torch.float32, device=dev)
-    valid = torch.empty((n, h, w), dtype=torch.bool, device=dev)
+    _check("dst_position", dst_position, dev, (d, 3))
+    _check("disparity", disparity, dev, (d, h, w))
+    _check("rays", rays, dev, (d, 3, h, w))
+    sampled = torch.empty((d, n, c, h, w), dtype=torch.float32, device=dev)
+    valid = torch.empty((d, n, h, w), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         _launch("project_sample", (h, w), _build.load().fdt_project_sample,
-                src_planar.data_ptr(), n, c, hs, ws, params.data_ptr(), dst_position.data_ptr(),
-                disparity.data_ptr(), rays.data_ptr(), h, w, sampled.data_ptr(), valid.data_ptr())
-    return sampled, valid
+                src.data_ptr(), n, c, hs, ws, params.data_ptr(), dst_position.data_ptr(),
+                disparity.data_ptr(), rays.data_ptr(), d, h, w, sampled.data_ptr(), valid.data_ptr())
+    return (sampled[0], valid[0]) if single else (sampled, valid)
 
 
 def ssd_combine(sampled, valid, dst_planar, variance, exclude_idx: int):
@@ -204,14 +243,15 @@ def ssd_combine(sampled, valid, dst_planar, variance, exclude_idx: int):
 
 
 def rgba_stack(imgs: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C >= 3) colors -> the (N, H, W, 4) float32 stack K3 reads:
-    RGB and a zero pad, so each bilinear tap is one 16-byte load."""
+    """(N, H, W, C >= 3) colors -> the (N, H, W, 4) float32 stack K1
+    (:func:`project_sample`) and K3 read: RGB and a zero pad, so each
+    bilinear tap is one 16-byte load."""
     return torch.nn.functional.pad(imgs[..., :3].to(torch.float32), (0, 1)).contiguous()
 
 
 def planar_view(src_rgba: torch.Tensor) -> torch.Tensor:
     """The (N, 3, H, W) channel-planar view of an :func:`rgba_stack`, no
-    copy (not contiguous): what the twins read at the K3 levels."""
+    copy (not contiguous): what the twins read."""
     return src_rgba[..., :3].permute(0, 3, 1, 2)
 
 

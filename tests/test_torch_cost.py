@@ -88,21 +88,20 @@ def test_per_src_ssd(contexts):
 def test_cost_for_disparity_split_gives_same_costs(contexts, monkeypatch):
     """On CPU both size branches (fused K3 twin / K1 then K2 twins) are one
     computation; the JAX XLA path agrees to the cancellation-amplified ulps.
-    The fused branch reads the interleaved stack, which a level context
-    holds only from FUSED_MIN_PIXELS up, so it is added here."""
+    The level context holds the interleaved stack the fused branch reads at
+    every level."""
     jctx, tctx, gt = contexts
-    cctx = tsolver._cost_ctx(tctx, 1)
-    split = tcost.cost_for_disparity(cctx, tt(gt[1]))
+    cctx = tsolver.cost_context(tsolver.select_destinations(tctx, [1]))
+    split = tcost.cost_for_disparity(cctx, tt(gt[1:2]))
     monkeypatch.setattr(tcost, "FUSED_MIN_PIXELS", 0)
-    cctx = cctx._replace(src_rgba=wc.rgba_stack(cctx.src_planar.permute(0, 2, 3, 1)))
-    fused = tcost.cost_for_disparity(cctx, tt(gt[1]))
+    fused = tcost.cost_for_disparity(cctx, tt(gt[1:2]))
     assert torch.equal(split[0], fused[0]) and torch.equal(split[1], fused[1])
     j_cost, j_conf = jcost.cost_for_disparity(jsolver._cost_ctx(jctx, 1), jnp.asarray(gt[1]))
     j_cost = np.asarray(j_cost)
-    assert np.array_equal(split[0].numpy() >= 1e30, j_cost >= 1e30)
+    assert np.array_equal(split[0][0].numpy() >= 1e30, j_cost >= 1e30)
     ok = j_cost < 1e30
-    assert rel_err(split[0].numpy()[ok], j_cost[ok]).max() < 1e-4
-    np.testing.assert_array_equal(split[1].numpy(), np.asarray(j_conf))
+    assert rel_err(split[0][0].numpy()[ok], j_cost[ok]).max() < 1e-4
+    np.testing.assert_array_equal(split[1][0].numpy(), np.asarray(j_conf))
 
 
 def test_brute_force_disparity(contexts):
@@ -111,8 +110,9 @@ def test_brute_force_disparity(contexts):
     jctx, tctx, _ = contexts
     j_d, j_c, j_f = map(np.asarray, jcost.brute_force_disparity(
         jsolver._cost_ctx(jctx, 0), 1.0, 100.0, jctx.dst_fov_masks[0], jctx.dst_fg_masks[0], jctx.dst_bg_disp[0], False))
-    t_d, t_c, t_f = (x.numpy() for x in tcost.brute_force_disparity(
-        tsolver._cost_ctx(tctx, 0), 1.0, 100.0, tctx.dst_fov_masks[0], tctx.dst_fg_masks[0], tctx.dst_bg_disp[0], False))
+    one = tsolver.select_destinations(tctx, [0])
+    t_d, t_c, t_f = (x[0].numpy() for x in tcost.brute_force_disparity(
+        tsolver.cost_context(one), 1.0, 100.0, one.dst_fov_masks, one.dst_fg_masks, one.dst_bg_disp, False))
     assert np.array_equal(np.isnan(t_d), np.isnan(j_d))
     assert np.array_equal(np.isnan(t_c), np.isnan(j_c))
     same = (t_d == j_d) | np.isnan(j_d)

@@ -48,8 +48,8 @@ def _k1_args(s, src=None):
             tt(s["disp"]), tt(np.moveaxis(s["rays"], -1, 0).copy()))
 
 
-def _k3_args(s):
-    """K1's arguments with the interleaved stack K3 reads in place of the planar one."""
+def _rgba_args(s):
+    """The twins' arguments with the interleaved stack K1 and K3 read in place of the planar one."""
     return (wc.rgba_stack(tt(s["colors"])),) + _k1_args(s)[1:]
 
 
@@ -70,7 +70,7 @@ def test_k1_twin_vs_pallas_v4_interpret():
     must agree (B1's clipped flag is never set: the window covers the whole
     source), up to the Cephes-vs-libm atan at razor edges."""
     s = _scene()
-    sampled, valid = wc.project_sample(*_k1_args(s))
+    sampled, valid = wc.project_sample(*_rgba_args(s))
     p_s, p_v, p_c = warp_pallas.project_sample_planar_v4(
         jnp.asarray(s["planar"]), jnp.asarray(s["params"]), s["cam0"].position, jnp.asarray(s["disp"]),
         jnp.asarray(np.moveaxis(s["rays"], -1, 0)), interpret=True, ww_max=1024, wh_max=1024)
@@ -91,7 +91,7 @@ def test_k1_twin_vs_xla_path():
     package per source. The coordinates (O(60) px) agree to float32 ulps,
     which moves a sample by up to ~1e-6 on colors in [0,1]: 5e-6."""
     s = _scene(seed=1)
-    sampled, valid = wc.project_sample(*_k1_args(s))
+    sampled, valid = wc.project_sample(*_rgba_args(s))
     for i in range(len(s["planar"])):
         csrc = jax.tree.map(lambda a: a[i], s["cams"])
         coords, jv = jcost.reproject_rays(s["cam0"].position, jnp.asarray(s["rays"]), csrc, jnp.asarray(s["disp"]), (48, 64))
@@ -110,7 +110,7 @@ def test_k1_twin_one_channel_nan_taps():
     s = _scene(seed=2)
     stack = f32(np.random.RandomState(3).rand(4, 1, 48, 64) * 0.2 + 0.1)
     stack[:, :, 10:20, 20:30] = np.nan
-    sampled, valid = wc.project_sample(*_k1_args(s, stack))
+    sampled, valid = wc.project_sample_planes(*_k1_args(s, stack))
     for i in range(4):
         csrc = jax.tree.map(lambda a: a[i], s["cams"])
         coords, jv = jcost.reproject_rays(s["cam0"].position, jnp.asarray(s["rays"]), csrc, jnp.asarray(s["disp"]), (48, 64))
@@ -246,7 +246,7 @@ def test_k3_twin_vs_pallas_packed_interpret():
     s = _scene(w=96, h=48, seed=4)
     variance = np.asarray(jsamp.rgb_variance(jnp.asarray(s["colors"][0])))
     dst = s["planar"][0]
-    cost, conf = wc.cost_fused(*_k3_args(s), tt(dst), tt(variance), 0)
+    cost, conf = wc.cost_fused(*_rgba_args(s), tt(dst), tt(variance), 0)
     packed = warp_pallas.project_sample_packed(
         jnp.asarray(s["planar"]), jnp.asarray(s["params"]), s["cam0"].position, jnp.asarray(s["disp"]),
         jnp.asarray(np.moveaxis(s["rays"], -1, 0)), interpret=True, ww_max=1024, wh_max=1024)
@@ -276,7 +276,7 @@ def test_k3_twin_vs_xla_cost_for_disparity(monkeypatch):
                             src_imgs=jnp.asarray(s["colors"]), variance=jnp.asarray(variance), exclude_idx=0,
                             dst_rays=jnp.asarray(s["rays"]), src_imgs_t=None)
     j_cost, j_conf = map(np.asarray, jcost.cost_for_disparity(ctx, jnp.asarray(s["disp"])))
-    cost, conf = wc.cost_fused(*_k3_args(s), tt(s["planar"][0]), tt(variance), 0)
+    cost, conf = wc.cost_fused(*_rgba_args(s), tt(s["planar"][0]), tt(variance), 0)
     plain = wc.cost_fused_plain(*_k1_args(s), tt(s["planar"][0]), tt(variance), 0)
     assert torch.equal(cost, plain[0]) and torch.equal(conf, plain[1])
     cost = cost.numpy()
@@ -292,14 +292,12 @@ def test_k3_twin_vs_xla_cost_for_disparity(monkeypatch):
     jctx = jsolver.make_level_context(rig, rig, s["colors"], jpipe.generate_fov_masks(rig, (48, 64)))
     tctx = tsolver.make_level_context(trig, trig, tt(s["colors"]), tpipe.generate_fov_masks(trig, (48, 64)))
     assert tctx.src_rgba.shape == (4, 48, 64, 4) and tctx.src_rgba.is_contiguous()
-    assert torch.equal(tctx.src_rgba[..., :3], tctx.src_planar.permute(0, 2, 3, 1))
+    assert torch.equal(tctx.src_rgba[..., :3], tt(s["colors"]))
     assert not tctx.src_rgba[..., 3].any()
-    # the planar stack is a view of the interleaved one there, not a copy
-    assert tctx.src_planar.data_ptr() == tctx.src_rgba.data_ptr() and not tctx.src_planar.is_contiguous()
-    cctx = tsolver._cost_ctx(tctx, 0)
+    cctx = tsolver.cost_context(tsolver.select_destinations(tctx, [0]))
     assert cctx.src_rgba is tctx.src_rgba and cctx.dst_planar.is_contiguous()
-    assert torch.equal(cctx.dst_planar, tt(s["planar"][0]))
-    cost, conf = tcost.cost_for_disparity(cctx, tt(s["disp"]))
+    assert torch.equal(cctx.dst_planar[0], tt(s["planar"][0]))
+    cost, conf = (x[0] for x in tcost.cost_for_disparity(cctx, tt(s["disp"])))
     j_cost, j_conf = map(np.asarray, jcost.cost_for_disparity(jsolver._cost_ctx(jctx, 0), jnp.asarray(s["disp"])))
     cost = cost.numpy()
     assert (cost < 1e30).mean() > 0.5
@@ -310,13 +308,23 @@ def test_k3_twin_vs_xla_cost_for_disparity(monkeypatch):
 
 
 def test_level_context_interleaved_stack_only_at_k3_levels():
-    """Below FUSED_MIN_PIXELS (K1 then K2) no interleaved copy is made."""
+    """One sampling stack at every level, K1's and K3's alike: the
+    interleaved RGB + pad stack, whose planar view (no copy) the twins
+    read; the destinations' colors are a contiguous (D, 3, H, W) copy,
+    ordered as the dst cameras."""
     rig = tcam.normalize_rig(ring_rig(tcam, "", n=4, resolution=(64, 48), mixed=True))
     colors = torch.rand((4, 48, 64, 3), generator=torch.Generator().manual_seed(0))
-    ctx = tsolver.make_level_context(rig, rig, colors, tpipe.generate_fov_masks(rig, (48, 64)))
-    assert ctx.src_rgba is None and tsolver._cost_ctx(ctx, 1).src_rgba is None
-    assert ctx.src_planar.is_contiguous() and torch.equal(ctx.src_planar, colors.permute(0, 3, 1, 2))
-    assert torch.equal(wc.planar_view(wc.rgba_stack(colors)), ctx.src_planar)
+    ctx = tsolver.make_level_context(rig, rig.subset([2, 0]), colors, tpipe.generate_fov_masks(rig, (48, 64))[[2, 0]])
+    assert ctx.src_rgba.shape == (4, 48, 64, 4) and ctx.src_rgba.is_contiguous()
+    planar = wc.planar_view(ctx.src_rgba)
+    assert planar.data_ptr() == ctx.src_rgba.data_ptr() and not planar.is_contiguous()
+    assert torch.equal(planar, colors.permute(0, 3, 1, 2))
+    assert torch.equal(wc.planar_view(wc.rgba_stack(colors)), planar)
+    assert ctx.dst2src == (2, 0) and ctx.dst_planar.is_contiguous()
+    assert torch.equal(ctx.dst_planar, colors.permute(0, 3, 1, 2)[[2, 0]])
+    assert torch.equal(ctx.dst_variance, ctx.src_variance[[2, 0]])
+    cctx = tsolver.cost_context(ctx)
+    assert cctx.src_rgba is ctx.src_rgba and cctx.dst_planar is ctx.dst_planar and cctx.exclude_idx == (2, 0)
     rgba = wc.rgba_stack(colors.double())
     assert rgba.dtype == torch.float32 and torch.equal(rgba[..., :3], colors) and not rgba[..., 3].any()
 
@@ -324,7 +332,7 @@ def test_level_context_interleaved_stack_only_at_k3_levels():
 def test_wrappers_on_cpu_run_twins_and_count_nothing():
     s = _scene(seed=6)
     wc.reset_launch_counts()
-    a = wc.project_sample(*_k1_args(s))
+    a = wc.project_sample(*_rgba_args(s))
     b = wc.project_sample_plain(*_k1_args(s))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert all(v == 0 for v in wc.LAUNCHES.values()) and not wc.LAUNCHES_BY_SHAPE
