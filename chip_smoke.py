@@ -50,7 +50,22 @@
    export of the filtered frame 000001. It checks that K1-K3 were launched
    by both solves and K4 by the export, the masks' IoU against the disk's
    true coverage, and the level-0, in-disk, filtered and upsampled median
-   relative errors against the composited truth (bar 0.05).
+   relative errors against the composited truth (bar 0.05); then
+   convert_to_binary --foreground_masks of the filtered frame 000001, whose
+   meshes must keep to the masks' pixels;
+10. publishes and plays back the sphere solve of step 4 (in its tree, after
+   step 8): the port's convert_to_binary with its defaults (vtx, idx, bc7;
+   150000 triangles; adaptive mesh; fusion) on the 16 level-0 disparity maps
+   and colors at 2048x1536; checks that each .idx indexes its .vtx, faces
+   stay within the budget (or the simplifier says why not), vertices are
+   finite, every fused entry read back (read_fused_entry and
+   AsyncFrameLoader) equals its bin/ file, the mean BC7 PSNR against the
+   RGBA8 is >= 30 dB and each mesh rasterized back keeps a median relative
+   z error <= 1% of the equi-error z; converts cameras 0 and 1 again on the
+   CPU (byte-identical files); runs view_fused at 2048x1024 from the rig
+   center (K4 launched), whose covered share must reach 90% of the eqrcolor
+   export's and whose PSNR over pixels both cover must be >= 30 dB; prints
+   each stage's wall time and the peak device memory.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -85,6 +100,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -586,7 +602,194 @@ def run_renderer(root: str, out_root: str, fmt: str, dev):
         raise AssertionError(f"K4 warp_sample never launched by simple_mesh_renderer {fmt}")
     if not rec["finite"] or not 0.1 < rec["coverage"]:
         raise AssertionError(f"simple_mesh_renderer {fmt}: finite {rec['finite']}, coverage {rec['coverage']}")
-    return {f"{fmt}_s": seconds, f"{fmt}_coverage": rec["coverage"]}
+    return {f"{fmt}_s": seconds, f"{fmt}_coverage": rec["coverage"], f"{fmt}_k4_launches": wc.LAUNCHES["warp_sample"]}
+
+
+# bars of the publish and playback phase (step 10): BC7 against its RGBA8,
+# the simplified mesh's z against the equi-error grid's, and the played-back
+# view against the eqrcolor export of the same solve
+BC7_PSNR_BAR_DB = 30.0
+MESH_Z_ERR_BAR = 0.01
+PLAYBACK_COVERAGE_BAR = 0.90  # of the export's covered share
+PLAYBACK_PSNR_BAR_DB = 30.0
+TRIANGLES = 150000  # convert_to_binary's default budget
+
+
+def psnr_db(a, b) -> float:
+    """PSNR of two [0, 1] arrays."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return math.inf if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+class _Messages(logging.Handler):
+    """Keeps the messages of the records it handles (the simplifier's budget
+    warnings)."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def run_publish(root: str, out_root: str, dev):
+    """Step 10: the port's convert_to_binary with its defaults (vtx, idx,
+    bc7; 150000 triangles; adaptive mesh; fusion) on derp_cli's level 0 and
+    the level-0 colors, its checks, the same conversion of two cameras on
+    the CPU (byte-identical files), and view_fused at 2048x1024 from the rig
+    center against step 8's eqrcolor export. Returns (metrics, K4 launches
+    of the playback)."""
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import compute_rephotography_errors as cre
+    from facebook360_dep_tpu_torch.cli import convert_to_binary as ctb
+    from facebook360_dep_tpu_torch.cli import simple_mesh_renderer as smr
+    from facebook360_dep_tpu_torch.cli import view_fused
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.core import io
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+    from facebook360_dep_tpu_torch.stream import async_loader, fusion, mesh, native
+
+    frame = "000000"
+    rig_path = os.path.join(root, "rigs/rig_calibrated.json")
+    rig = cam.load_rig(rig_path)
+    color_dir = os.path.join(root, "video/color_levels/level_0")
+    disp_dir = os.path.join(out_root, "disparity_levels/level_0")
+    pub = os.path.join(root, "publish")
+    bin_dir, fused_dir = os.path.join(pub, "bin"), os.path.join(pub, "fused")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    capture = _Messages()
+    logging.getLogger("stream").addHandler(capture)
+    t = time.time()
+    try:
+        conv = ctb.main(["--rig", rig_path, "--bin", bin_dir, "--fused", fused_dir, "--color", color_dir,
+                         "--disparity", disp_dir], device=dev)
+    finally:
+        logging.getLogger("stream").removeHandler(capture)
+    convert_wall = time.time() - t
+    tasks = {rec["cam_id"]: rec for rec in conv["tasks"]}
+    if sorted(tasks) != sorted(rig.ids):
+        raise AssertionError(f"convert_to_binary converted {sorted(tasks)}, expected {rig.ids}")
+
+    with open(os.path.join(fused_dir, "fused.json")) as f:
+        catalog = json.load(f)
+    loader = async_loader.AsyncFrameLoader(fused_dir, catalog)
+    try:
+        loaded = loader.get(frame)
+    finally:
+        loader.close()
+    log(f"publish: convert_to_binary {convert_wall:.2f} s for {len(rig.ids)} cameras ({conv['convert_s']:.2f} s "
+        f"converting on {os.cpu_count()} threads, fusion {conv['fuse_s']:.3f} s)")
+    bc7_psnr, z_err, z_cover = {}, {}, {}
+    for i, cam_id in enumerate(rig.ids):
+        rec = tasks[cam_id]
+        stem = os.path.join(bin_dir, cam_id, frame)
+        v, f = mesh.read_vtx(stem + ".vtx"), mesh.read_idx(stem + ".idx")
+        if not len(f) or int(f.max()) >= len(v):
+            raise AssertionError(f"{cam_id}: .idx ({len(f)} faces) does not index its .vtx ({len(v)} vertices)")
+        if len(f) > TRIANGLES and not any(f"{len(f)} faces" in m for m in capture.messages):
+            raise AssertionError(f"{cam_id}: {len(f)} faces over the budget without the simplifier's warning")
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{cam_id}: non-finite vertices")
+        for ext in (".vtx", ".idx", ".bc7"):
+            data = open(stem + ext, "rb").read()
+            if fusion.read_fused_entry(fused_dir, catalog, frame, cam_id, ext) != data:
+                raise AssertionError(f"{cam_id}{ext}: the fused entry differs from its bin/ file")
+            if loaded[(cam_id, ext)] != data:
+                raise AssertionError(f"{cam_id}{ext}: AsyncFrameLoader's read differs from its bin/ file")
+        color = io.read_color(io.frame_path(os.path.join(color_dir, cam_id), frame))
+        h4, w4 = color.shape[0] // 4 * 4, color.shape[1] // 4 * 4
+        rgba = ctb.gamma_correct_to_rgba8(color[:h4, :w4], 2.2 / 1.8)
+        decoded = native.decompress_bc7(np.fromfile(stem + ".bc7", np.uint8), w4, h4)
+        bc7_psnr[cam_id] = psnr_db(decoded[..., :3] / 255.0, rgba[..., :3] / 255.0)
+        disp = io.read_disparity(io.frame_path(os.path.join(disp_dir, cam_id), frame))
+        h, w = disp.shape
+        camera = rig.camera(i)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = np.float32(float(camera.focal[0])) / (np.float32(1.0) / disp)  # the equi-error grid's z
+            zr = native.rasterize_mesh(v, f, w, h, w / float(camera.resolution[0]), h / float(camera.resolution[1]))
+            both = np.isfinite(zr) & np.isfinite(z)
+            z_err[cam_id] = float(np.median(np.abs(zr[both] - z[both]) / np.abs(z[both])))
+        z_cover[cam_id] = float(np.isfinite(zr).mean())
+        log(f"  {cam_id}: {rec['vertices']} vertices, {rec['faces']} faces; mesh {rec['mesh_s']:.2f} s, color "
+            f"{rec['color_s']:.2f} s; BC7 PSNR {bc7_psnr[cam_id]:.2f} dB; rasterized mesh covers "
+            f"{z_cover[cam_id]:.4f} (finite z {np.isfinite(z).mean():.4f}), median relative z error "
+            f"{z_err[cam_id]:.5f}")
+    mean_psnr = float(np.mean(list(bc7_psnr.values())))
+    worst_z = max(z_err.values())
+    budget = [m for m in capture.messages if "budget not reached" in m]
+    log(f"publish: BC7 mean PSNR {mean_psnr:.3f} dB (bar {BC7_PSNR_BAR_DB}); mesh median relative z error "
+        f"worst {worst_z:.5f} (bar {MESH_Z_ERR_BAR}); faces max {max(r['faces'] for r in tasks.values())} "
+        f"(budget {TRIANGLES}); simplifier warnings {budget}")
+    if not mean_psnr >= BC7_PSNR_BAR_DB:
+        raise AssertionError(f"BC7 mean PSNR {mean_psnr} dB below {BC7_PSNR_BAR_DB}")
+    if not worst_z <= MESH_Z_ERR_BAR:
+        raise AssertionError(f"mesh median relative z error {worst_z} above {MESH_Z_ERR_BAR}")
+
+    # the same conversion of two cameras on the CPU: the same bytes
+    t = time.time()
+    cpu_bin = os.path.join(pub, "bin_cpu")
+    two = rig.ids[:2]
+    ctb.main(["--rig", rig_path, "--bin", cpu_bin, "--color", color_dir, "--disparity", disp_dir,
+              "--cameras", ",".join(two)], device="cpu")
+    for cam_id in two:
+        for ext in (".vtx", ".idx", ".bc7", ".meta.json"):
+            a, b = (open(os.path.join(d, cam_id, frame + ext), "rb").read() for d in (bin_dir, cpu_bin))
+            if a != b:
+                raise AssertionError(f"{cam_id}{ext}: the card's conversion differs from the CPU's")
+    cpu_s = time.time() - t
+    log(f"publish: {', '.join(two)} converted on the CPU in {cpu_s:.2f} s, byte-identical to the card's")
+
+    wc.reset_launch_counts()
+    t = time.time()
+    played = view_fused.main(["--rig", rig_path, "--catalog", os.path.join(fused_dir, "fused.json"),
+                              "--output", os.path.join(pub, "view"), "--width", "2048", "--height", "1024"],
+                             device=dev)[0]
+    if cuda:
+        torch.cuda.synchronize()
+    playback_s = time.time() - t
+    k4 = wc.LAUNCHES["warp_sample"]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if cuda and k4 <= 0:
+        raise AssertionError("K4 warp_sample never launched by view_fused")
+    # step 8's eqrcolor export of the same solve; its alpha re-rendered
+    # from the same inputs (outside the counted run)
+    export = io.read_color(os.path.join(root, "render", "eqrcolor", frame + ".png"))
+    colors, disps = cre.load_rig_images(color_dir, disp_dir, rig, frame)
+    _, ref_alpha = smr.render_format("eqrcolor", rig, torch.from_numpy(colors).to(dev),
+                                     torch.from_numpy(disps).to(dev), 2048, 1024, 0.064, [0.0, 0.0, 0.0])
+    ref_alpha = ref_alpha.cpu().numpy()
+    view = io.read_color(played["path"])
+    both = played["alpha"] & ref_alpha
+    cover_ratio = played["coverage"] / float(ref_alpha.mean())
+    play_psnr = psnr_db(view[both], export[both])
+    log(f"playback: view_fused {playback_s:.2f} s at 2048x1024, K4 launches {k4}; covered {played['coverage']:.4f} "
+        f"against the export's {ref_alpha.mean():.4f} (ratio {cover_ratio:.4f}, bar {PLAYBACK_COVERAGE_BAR}); "
+        f"PSNR over pixels both cover {play_psnr:.3f} dB (bar {PLAYBACK_PSNR_BAR_DB}); finite {played['finite']}")
+    mesh_s = sum(r["mesh_s"] for r in tasks.values())
+    color_s = sum(r["color_s"] for r in tasks.values())
+    log(f"publish stage times: mesh + simplify {mesh_s:.2f} s, BC7 {color_s:.2f} s (thread-seconds, summed over "
+        f"the {len(tasks)} tasks), conversion {conv['convert_s']:.2f} s wall = "
+        f"{conv['convert_s'] / len(tasks):.3f} s per frame-camera, fusion {conv['fuse_s']:.3f} s, "
+        f"playback {playback_s:.2f} s; peak device memory {peak:.2f} GiB")
+    if not played["finite"] or not cover_ratio >= PLAYBACK_COVERAGE_BAR:
+        raise AssertionError(f"playback covers {cover_ratio} of the export (finite {played['finite']})")
+    if not play_psnr >= PLAYBACK_PSNR_BAR_DB:
+        raise AssertionError(f"playback PSNR {play_psnr} dB against the export below {PLAYBACK_PSNR_BAR_DB}")
+    metrics = dict(publish_convert_s=conv["convert_s"], publish_mesh_thread_s=mesh_s, publish_bc7_thread_s=color_s,
+                   publish_fuse_s=conv["fuse_s"], publish_s_per_frame_camera=conv["convert_s"] / len(tasks),
+                   publish_cpu_two_cameras_s=cpu_s, publish_max_faces=max(r["faces"] for r in tasks.values()),
+                   publish_bc7_psnr_db=mean_psnr, publish_mesh_z_err_worst=worst_z,
+                   publish_mesh_coverage_min=min(z_cover.values()), playback_s=playback_s,
+                   playback_coverage=played["coverage"], playback_coverage_ratio=cover_ratio,
+                   playback_psnr_db=play_psnr, publish_peak_gib=peak)
+    return metrics, k4
 
 
 def write_project(root: str, dev, widths=WIDTHS):
@@ -762,13 +965,14 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
     import numpy as np
     import torch
 
-    from facebook360_dep_tpu_torch.cli import (derp_cli, generate_foreground_masks, resize_images,
-                                               simple_mesh_renderer, temporal_bilateral_filter,
+    from facebook360_dep_tpu_torch.cli import (convert_to_binary, derp_cli, generate_foreground_masks,
+                                               resize_images, simple_mesh_renderer, temporal_bilateral_filter,
                                                upsample_disparity)
     from facebook360_dep_tpu_torch.core import camera as cam
     from facebook360_dep_tpu_torch.core import imagetypes, io
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
     from facebook360_dep_tpu_torch.render import synthetic
+    from facebook360_dep_tpu_torch.stream import mesh
 
     full = (widths[0], height(widths[0]))
     rig = synthetic.make_test_rig(NUM_CAMERAS, full, ring_radius=0.3)
@@ -835,9 +1039,15 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
             "--disparity", os.path.join(fg_out, "disparity_time_filtered_levels/level_0"),
             "--output", os.path.join(fg_out, "eqrcolor"), "--format", "eqrcolor",
             "--first", CHAIN_FRAMES[1], "--last", CHAIN_FRAMES[1]]),
+        ("publish with masks", convert_to_binary.main, [
+            "--rig", rig_path, "--bin", os.path.join(fg_out, "bin"), "--fused", os.path.join(fg_out, "fused"),
+            "--color", os.path.join(imagetypes.image_dir(shot, "color_levels"), "level_0"),
+            "--disparity", os.path.join(fg_out, "disparity_time_filtered_levels/level_0"),
+            "--foreground_masks", os.path.join(fg_levels, "level_0"),
+            "--first", CHAIN_FRAMES[1], "--last", CHAIN_FRAMES[1]]),
     ]
     on_device = {derp_cli.main, generate_foreground_masks.main, temporal_bilateral_filter.main,
-                 upsample_disparity.main, simple_mesh_renderer.main}
+                 upsample_disparity.main, simple_mesh_renderer.main, convert_to_binary.main}
     launches, results, peaks = {}, {}, {}
     for name, entry, argv in stages:
         if dev.type == "cuda":
@@ -886,9 +1096,25 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
     filt_err, _ = relative_error(filtered, gt)
     up_err, _ = relative_error(upsampled, gt[1])
     export = results["export eqrcolor"][0]
+    # the masked meshes: vertex xy are level-0 pixels here, and the mesh
+    # keeps (QEM moves a few vertices off) the foreground mask's pixels only
+    inside = {}
+    for rec in results["publish with masks"]["tasks"]:
+        v = mesh.read_vtx(os.path.join(fg_out, "bin", rec["cam_id"], CHAIN_FRAMES[1] + ".vtx"))
+        m = io.read_mask(os.path.join(fg_levels, "level_0", rec["cam_id"], CHAIN_FRAMES[1] + ".png"))
+        cols = np.clip(v[:, 0].astype(np.int64), 0, m.shape[1] - 1)
+        rows = np.clip(v[:, 1].astype(np.int64), 0, m.shape[0] - 1)
+        inside[rec["cam_id"]] = float(m[rows, cols].mean()) if len(v) else 0.0
+        if not 0 < rec["faces"] <= 150000:
+            raise AssertionError(f"publish with masks: {rec['cam_id']} has {rec['faces']} faces")
+    log(f"publish with masks: faces {[r['faces'] for r in results['publish with masks']['tasks']]}; share of "
+        f"vertices on the mask, least {min(inside.values()):.4f}")
+    if not min(inside.values()) >= 0.9:
+        raise AssertionError(f"publish with masks: vertices off the foreground mask {inside}")
     metrics = dict(chain_mask_iou=iou, chain_level0_median_rel_err=err, chain_level0_disk_median_rel_err=disk_err,
                    chain_level0_coverage=coverage, chain_filtered_median_rel_err=filt_err,
                    chain_upsampled_median_rel_err=up_err, chain_eqrcolor_coverage=export["coverage"],
+                   chain_publish_mask_share_min=min(inside.values()),
                    chain_peak_gib=peak, chain_seconds=seconds)
     log(f"foreground chain: mask IoU {iou:.4f} (bar {MASK_IOU_BAR}); level 0 median relative error {err:.5f}, "
         f"inside the disk {disk_err:.5f} (bar 0.05), coverage {coverage:.4f}; temporally filtered {filt_err:.5f}; "
@@ -975,6 +1201,14 @@ def main(argv=None) -> int:
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
+    # the host codecs (PNG unfilter, PIZ, BC7, mesh) build at first use too:
+    # built here, their g++ time stays out of the first solve's level
+    from facebook360_dep_tpu_torch.stream import native
+
+    t = time.time()
+    native_path = native.build()
+    native.load()
+    log(f"native host codecs built and loaded in {time.time() - t:.1f} s: {os.path.relpath(native_path, REPO)}")
 
     if args.solve:  # one timed solve, for comparing two checkouts in one call
         from facebook360_dep_tpu_torch.core import camera as cam
@@ -1020,6 +1254,10 @@ def main(argv=None) -> int:
             render.update(run_renderer(root, out_root, fmt, dev))
         launches["warp_sample"] = k4_launches
 
+        t = time.time()
+        publish, k4_playback = run_publish(root, out_root, dev)
+        log(f"publish and playback (step 10): {time.time() - t:.1f} s")
+
     with tempfile.TemporaryDirectory(prefix="fdt_chain_") as tmp:
         t = time.time()
         chain, chain_launches = run_foreground_chain(tmp, dev, profile_dir=args.profile)
@@ -1027,7 +1265,7 @@ def main(argv=None) -> int:
 
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
-                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **chain}))
+                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
@@ -1035,9 +1273,13 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, line) in sources.items():
         chain_counts = {stage: counts[name] for stage, counts in chain_launches.items() if counts[name]}
-        kernels.append(dict(name=name, route="cuda", source=f"{CSRC}/{src}",
-                            replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name],
-                            chain_launches=chain_counts))
+        entry = dict(name=name, route="cuda", source=f"{CSRC}/{src}",
+                     replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name],
+                     chain_launches=chain_counts)
+        if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback
+            entry["phase_launches"] = dict(rephotography=launches[name], eqrcolor=render["eqrcolor_k4_launches"],
+                                           tbstereo=render["tbstereo_k4_launches"], playback=k4_playback)
+        kernels.append(entry)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

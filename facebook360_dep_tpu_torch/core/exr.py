@@ -1,14 +1,12 @@
 """A small OpenEXR 2.0 codec on numpy and zlib: the port of ``core/exr.py``.
 
-Scanline and single-level (ONE_LEVEL) tiled files, NONE / ZIPS / ZIP
+Scanline and single-level (ONE_LEVEL) tiled files, NONE / ZIPS / ZIP / PIZ
 compression, FLOAT and HALF channels. The reference writes EXR disparity
 maps through OpenCV (``util/CvUtil.cpp:31-35``), whose encoder emits ZIP
-scanline blocks. The writer emits single-part scanline images with FLOAT
-channels in INCREASING_Y order.
-
-PIZ (wavelet + Huffman) needs the JAX package's native codec
-(``stream/native.py``), which is not ported: PIZ files raise
-NotImplementedError.
+scanline blocks; capture tooling commonly writes PIZ (wavelet + Huffman, 32
+scanlines a chunk), which goes through the native codec
+(``stream/_native/piz.cpp``). The writer emits single-part scanline images
+with FLOAT channels in INCREASING_Y order.
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ import zlib
 
 import numpy as np
 
+from ..stream import native
+
 MAGIC = 20000630
 VERSION = 2
 _TILED_BIT = 0x200
@@ -26,12 +26,11 @@ _TILED_BIT = 0x200
 NO_COMPRESSION = 0
 ZIPS_COMPRESSION = 2  # 1 scanline per chunk
 ZIP_COMPRESSION = 3  # 16 scanlines per chunk
-PIZ_COMPRESSION = 4
+PIZ_COMPRESSION = 4  # 32 scanlines per chunk
 
-_LINES_PER_CHUNK = {NO_COMPRESSION: 1, ZIPS_COMPRESSION: 1, ZIP_COMPRESSION: 16}
+_LINES_PER_CHUNK = {NO_COMPRESSION: 1, ZIPS_COMPRESSION: 1, ZIP_COMPRESSION: 16, PIZ_COMPRESSION: 32}
 # channel pixel types (ImfPixelType.h): 0=UINT, 1=HALF, 2=FLOAT
 _PIXEL_DTYPE = {1: np.float16, 2: np.float32}
-_PIZ_MSG = "EXR PIZ compression needs the native codec, which is not ported"
 
 
 def _attr(name: str, type_name: str, payload: bytes) -> bytes:
@@ -71,12 +70,15 @@ def _zip_unpredict_deinterleave(filt: bytes, n: int) -> bytes:
     return out.tobytes()
 
 
+def _piz_sizes(channels):
+    """u16 units a pixel for each channel (HALF=1, FLOAT=2)."""
+    return [np.dtype(dt).itemsize // 2 for _, dt in channels]
+
+
 def write_exr(path, img: np.ndarray, compression: str = "none") -> None:
     """Write (H, W) or (H, W, 3) float32 as a scanline EXR with FLOAT
     channels (Y, or R/G/B). ``compression``: "none", "zip" (OpenCV's
-    default) or "zips"; "piz" raises NotImplementedError."""
-    if compression == "piz":
-        raise NotImplementedError(_PIZ_MSG)
+    default), "zips" or "piz"."""
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         channels = {"Y": img}
@@ -86,7 +88,8 @@ def write_exr(path, img: np.ndarray, compression: str = "none") -> None:
         raise ValueError(f"unsupported shape {img.shape}")
     h, w = img.shape[:2]
     names = sorted(channels)
-    comp = {"none": NO_COMPRESSION, "zip": ZIP_COMPRESSION, "zips": ZIPS_COMPRESSION}[compression]
+    comp = {"none": NO_COMPRESSION, "zip": ZIP_COMPRESSION, "zips": ZIPS_COMPRESSION,
+            "piz": PIZ_COMPRESSION}[compression]
     lines_per_chunk = _LINES_PER_CHUNK[comp]
 
     box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
@@ -111,7 +114,12 @@ def write_exr(path, img: np.ndarray, compression: str = "none") -> None:
         raw = b"".join(np.ascontiguousarray(channels[n][y]).tobytes()
                        for y in range(y0, y0 + ny) for n in names)
         data = raw
-        if comp != NO_COMPRESSION:
+        if comp == PIZ_COMPRESSION:  # channel-major planes of the chunk's rows
+            planes = np.concatenate([np.ascontiguousarray(channels[n][y0:y0 + ny]).view(np.uint16).ravel()
+                                     for n in names])
+            z = native.piz_compress(planes, w, ny, _piz_sizes([(n, np.float32) for n in names]))
+            data = z if len(z) < len(raw) else raw  # OpenEXR stores raw if not smaller
+        elif comp != NO_COMPRESSION:
             z = zlib.compress(_zip_predict_interleave(raw))
             data = z if len(z) < len(raw) else raw  # OpenEXR stores raw if not smaller
         chunks.append((y0, data))
@@ -127,11 +135,20 @@ def write_exr(path, img: np.ndarray, compression: str = "none") -> None:
             f.write(data)
 
 
-def _fill_chunk(planes, channels, data, x0, y0, w, ny):
+def _fill_chunk(planes, channels, compression, data, x0, y0, w, ny):
     """Decode one chunk's payload into the channel planes; ``(x0, y0)`` is
     its top-left, ``w`` its width in pixels, ``ny`` its scanline count."""
     raw_size = ny * w * sum(np.dtype(dt).itemsize for _, dt in channels)
     if len(data) < raw_size:  # compressed (OpenEXR stores raw when not smaller)
+        if compression == PIZ_COMPRESSION:  # channel-major planes
+            sizes = _piz_sizes(channels)
+            planes16 = native.piz_uncompress(data, w, ny, sizes)
+            off = 0
+            for (n, dt), sz in zip(channels, sizes):
+                cnt = ny * w * sz
+                planes[n][y0:y0 + ny, x0:x0 + w] = planes16[off:off + cnt].view(dt).reshape(ny, w)
+                off += cnt
+            return
         data = _zip_unpredict_deinterleave(zlib.decompress(data), raw_size)
     # per scanline, each channel's row in order
     dp = 0
@@ -144,7 +161,7 @@ def _fill_chunk(planes, channels, data, x0, y0, w, ny):
 def read_exr(path) -> np.ndarray:
     """Read a FLOAT/HALF EXR -> (H, W) or (H, W, 3) float32.
 
-    Single-part scanline and ONE_LEVEL tiled images with none/ZIP/ZIPS
+    Single-part scanline and ONE_LEVEL tiled images with none/ZIP/ZIPS/PIZ
     compression."""
     with open(path, "rb") as f:
         buf = f.read()
@@ -182,10 +199,8 @@ def read_exr(path) -> np.ndarray:
         elif name == "tiles":
             tile_desc = struct.unpack_from("<iiB", payload, 0)
     pos += 1  # header terminator
-    if compression == PIZ_COMPRESSION:
-        raise NotImplementedError(f"{_PIZ_MSG}: {path}")
     if compression not in _LINES_PER_CHUNK:
-        raise NotImplementedError(f"unsupported compression {compression} (supported: none=0, ZIPS=2, ZIP=3)")
+        raise NotImplementedError(f"unsupported compression {compression} (supported: none=0, ZIPS=2, ZIP=3, PIZ=4)")
     x0, y0, x1, y1 = data_window
     w, h = x1 - x0 + 1, y1 - y0 + 1
     channels.sort(key=lambda c: c[0])
@@ -203,7 +218,7 @@ def read_exr(path) -> np.ndarray:
             dx, dy, _lx, _ly, size = struct.unpack_from("<iiiii", buf, pos)
             pos += 20
             cx, cy = dx * tx, dy * ty
-            _fill_chunk(planes, channels, buf[pos:pos + size], cx, cy, min(tx, w - cx), min(ty, h - cy))
+            _fill_chunk(planes, channels, compression, buf[pos:pos + size], cx, cy, min(tx, w - cx), min(ty, h - cy))
             pos += size
     else:
         lines_per_chunk = _LINES_PER_CHUNK[compression]
@@ -212,7 +227,7 @@ def read_exr(path) -> np.ndarray:
         for _ in range(num_chunks):
             y, size = struct.unpack_from("<ii", buf, pos)
             pos += 8
-            _fill_chunk(planes, channels, buf[pos:pos + size], 0, y - y0, w, min(lines_per_chunk, y1 - y + 1))
+            _fill_chunk(planes, channels, compression, buf[pos:pos + size], 0, y - y0, w, min(lines_per_chunk, y1 - y + 1))
             pos += size
 
     names = [n for n, _ in channels]

@@ -5,8 +5,10 @@
   ``util/CvUtil.cpp:39-73``), byte-identical to the JAX package's writer.
 - PNG16 disparity: clamp [0,1] -> uint16 full range (``PyramidLevel.h:442-451``).
 - PNG colors through :mod:`.png` (no OpenCV); float32 RGB(A) in [0,1].
+  JPEG and TIFF colors through OpenCV, imported only where such a file is
+  read.
 - Boolean masks with OpenCV's ``IMREAD_GRAYSCALE`` semantics.
-- EXR float maps through :mod:`.exr` (numpy + zlib; PIZ is not ported).
+- EXR float maps through :mod:`.exr` (numpy + zlib; PIZ through the native codec).
 - Host resizes with ``cv2.resize`` semantics: INTER_AREA downscales (box
   means at integer factors, area-weighted tables otherwise), INTER_NEAREST
   and INTER_LANCZOS4.
@@ -93,11 +95,41 @@ def read_disparity(path) -> np.ndarray:
     return img.astype(np.float32) / np.float32(255.0)
 
 
+_CV2_EXTS = (".jpg", ".jpeg", ".tif", ".tiff")
+
+
+def _cv2_imread(path: str) -> np.ndarray:
+    """``cv2.imread(path, IMREAD_UNCHANGED)`` of a JPEG or TIFF: the formats
+    the port reads through OpenCV, which it imports only here."""
+    ext = os.path.splitext(path)[1].lower()
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"reading {ext} images needs OpenCV (cv2), which is not installed: {path}") from e
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"cannot load {path}")
+    return img
+
+
 def read_color(path) -> np.ndarray:
-    """Load a color image as float32 RGB(A) in [0,1], shape (H, W, C)."""
+    """Load a color image as float32 RGB(A) in [0,1], shape (H, W, C): PNG
+    through :mod:`.png`; JPEG and TIFF through OpenCV as the JAX package
+    reads them (BGR(A) -> RGB(A), integers scaled by the dtype's maximum)."""
     path = str(path)
+    if os.path.splitext(path)[1].lower() in _CV2_EXTS:
+        img = _cv2_imread(path)
+        if img.dtype in (np.uint8, np.uint16):
+            img = img.astype(np.float32) / np.float32(np.iinfo(img.dtype).max)
+        else:
+            img = img.astype(np.float32)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        if img.shape[-1] >= 3:
+            img = img[..., [2, 1, 0] + ([3] if img.shape[-1] == 4 else [])]
+        return np.ascontiguousarray(img)
     if not path.endswith(".png"):
-        raise NotImplementedError(f"only PNG color images are supported: {path}")
+        raise NotImplementedError(f"color images are read from PNG, JPEG or TIFF: {path}")
     img = read_png(path)
     scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
     img = img.astype(np.float32) / scale
@@ -296,8 +328,12 @@ def frame_path(directory, frame: str) -> str:
 
 
 def image_size(path) -> tuple[int, int]:
-    """(width, height) from the PFM or PNG header, without decoding."""
+    """(width, height) from the PFM or PNG header, without decoding; of a
+    JPEG or TIFF through OpenCV."""
     path = str(path)
+    if os.path.splitext(path)[1].lower() in _CV2_EXTS:
+        img = _cv2_imread(path)
+        return img.shape[1], img.shape[0]
     with open(path, "rb") as f:
         if path.endswith(".pfm"):
             f.readline()

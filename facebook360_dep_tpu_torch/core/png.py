@@ -1,10 +1,11 @@
 """A small PNG codec on numpy and the standard library's zlib.
 
-The port's host IO must not depend on OpenCV (the GPU machine has none), so
-8/16-bit gray, gray+alpha, RGB and RGBA PNGs are encoded and decoded here.
-The writer emits filter type 0 (None) on every row; the reader undoes all
-five filter types, so files from libpng/OpenCV read back identically.
-Palette and interlaced files are not supported.
+The port's host IO does not depend on OpenCV, so 8/16-bit gray, gray+alpha,
+RGB and RGBA PNGs are encoded and decoded here. The writer emits filter type
+0 (None) on every row; the reader undoes all five filter types in native
+code (:func:`..stream.native.png_unfilter`, built with g++ at first use), so
+files from libpng, OpenCV or PIL read back identically. Palette and
+interlaced files are not supported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..stream import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> channels (PNG spec 11.2.2); 3 (palette) is not supported
@@ -71,44 +74,10 @@ def read_header(data: bytes):
     return w, h, depth, _CHANNELS[ctype]
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (PNG spec 9.2) -> (H, stride) uint8."""
-    rows = raw.reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        ftype, line = int(rows[y, 0]), rows[y, 1:]
-        if ftype == 0:
-            cur = line.copy()
-        elif ftype == 1:  # Sub: running sum per byte lane, mod 256
-            cur = np.empty(stride, np.uint8)
-            for lane in range(bpp):
-                cur[lane::bpp] = np.cumsum(line[lane::bpp], dtype=np.uint8)
-        elif ftype == 2:  # Up
-            cur = line + prior
-        elif ftype in (3, 4):  # Average / Paeth: sequential along the row
-            f, up, cur_l = line.tolist(), prior.tolist(), [0] * stride
-            for i in range(stride):
-                left = cur_l[i - bpp] if i >= bpp else 0
-                if ftype == 3:
-                    pred = (left + up[i]) >> 1
-                else:
-                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
-                cur_l[i] = (f[i] + pred) & 0xFF
-            cur = np.asarray(cur_l, np.uint8)
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = cur
-        prior = cur
-    return out
+    """Undo the per-row filters (PNG spec 9.2) -> (H, stride) uint8, in
+    native code: Average and Paeth rows are sequential along the row."""
+    return native.png_unfilter(raw, h, stride, bpp)
 
 
 def decode(data: bytes) -> np.ndarray:

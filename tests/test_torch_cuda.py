@@ -302,3 +302,25 @@ def test_handle_mismatches_batched_equals_one_destination_contexts(dev, monkeypa
         one, r1 = solver.handle_mismatches(solver.select_destinations(ctx, [d]), cfg, disp[d:d + 1],
                                            full_disparity=disp)
         assert torch.equal(new[d:d + 1].nan_to_num(-1.0), one.nan_to_num(-1.0)) and torch.equal(replace[d:d + 1], r1), d
+
+
+
+@pytest.mark.parametrize("depth_scale", [1.0, 0.5])
+def test_convert_depth_on_the_card_equals_cpu(dev, tmp_path, depth_scale):
+    """The publish path's device stages (depth, its nearest resizes, the
+    equi-error grid) give the CPU's bytes, so the meshes are the same."""
+    from facebook360_dep_tpu_torch.cli import convert_to_binary as ctb
+
+    w, h = 96, 72
+    rig = synthetic.make_test_rig(2, (w, h), ring_radius=0.2)
+    _, gt = synthetic.render_sphere_scene(rig, (w, h), radius=5.0)
+    disp = gt[0].numpy().copy()
+    disp[:20, :30] *= 2.5  # a tear
+    disp[40:44, 50:60] = np.nan
+    yy, xx = np.mgrid[0:h, 0:w]
+    mask = (xx - 48) ** 2 + (yy - 36) ** 2 < 30 ** 2
+    (vc, fc), (vd, fd) = (ctb.convert_depth(rig.camera(0), "cam0", disp, str(tmp_path), triangles=500,
+                                            depth_scale=depth_scale, foreground_mask=mask, device=d)
+                          for d in ("cpu", dev))
+    assert 0 < len(fd) <= 500
+    assert vd.tobytes() == vc.tobytes() and fd.tobytes() == fc.tobytes()

@@ -2,7 +2,7 @@
 device: without a visible card they raise, and never carry on silently on
 the CPU. The tests that compare each CLI with the JAX package's pass
 ``device="cpu"`` (test_torch_derp_cli.py, test_torch_fg_depth.py,
-test_torch_render_cli.py, test_torch_depth_tools.py)."""
+test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py)."""
 
 import importlib
 
@@ -24,6 +24,8 @@ ENTRY_POINTS = {
                                      "--first", "000000", "--last", "000000"],
     "simple_mesh_renderer": ["--rig", "r.json", "--color", "c", "--disparity", "d", "--output", "o",
                              "--format", "eqrcolor"],
+    "convert_to_binary": ["--rig", "r.json", "--bin", "b", "--disparity", "d", "--fused", "f"],
+    "view_fused": ["--rig", "r.json", "--catalog", "c.json", "--output", "o"],
 }
 
 

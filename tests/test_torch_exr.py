@@ -1,8 +1,9 @@
 """The port's EXR codec (facebook360_dep_tpu_torch/core/exr.py) against the
 JAX package's: files written by either package read back exactly by the
 other, HALF and tiled files built from the OpenEXR spec read alike by
-both, and PIZ raising in the port. Tolerance: exact (float32 and float16
-values are stored bit for bit)."""
+both, and PIZ files, FLOAT and HALF, written by either read back by the
+other. Tolerance: exact (float32 and float16 values are stored bit for
+bit)."""
 
 import struct
 import zlib
@@ -12,8 +13,10 @@ import pytest
 
 from facebook360_dep_tpu.core import exr as jexr
 from facebook360_dep_tpu.core import io as jio
+from facebook360_dep_tpu.stream import native as jnative
 from facebook360_dep_tpu_torch.core import exr as texr
 from facebook360_dep_tpu_torch.core import io as tio
+from facebook360_dep_tpu_torch.stream import native as tnative
 
 import torch_parity  # noqa: F401  (thread count)
 
@@ -150,19 +153,52 @@ def test_tiled_read_alike(tmp_path, compression):
         texr.read_exr(mip)
 
 
+def _piz_half_file(path, planes, compress):
+    """A PIZ scanline file of HALF (and FLOAT) channels, 32 lines a chunk,
+    each chunk's channel-major planes compressed by ``compress`` (one of
+    the two packages' native codecs); raw where PIZ does not shrink it."""
+    names_types = tuple((n, 1 if p.dtype == np.float16 else 2) for n, p in planes)
+    h, w = planes[0][1].shape
+    chunks = []
+    for y0 in range(0, h, 32):
+        rows = [np.ascontiguousarray(p[y0:y0 + 32]) for _, p in planes]
+        ny = rows[0].shape[0]
+        raw = b"".join(r[y].tobytes() for y in range(ny) for r in rows)
+        z = compress(np.concatenate([r.view(np.uint16).ravel() for r in rows]), w, ny,
+                     [t for _, t in names_types])
+        chunks.append(((y0,), z if len(z) < len(raw) else raw))
+    _write_chunks(path, _header(_chlist(names_types), 4, w, h), chunks)
+
+
 def test_piz_raises(tmp_path):
-    """PIZ needs the native codec, which is not ported: writing it and
-    reading a PIZ file raise NotImplementedError."""
-    img = _image(0)
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        texr.write_exr(str(tmp_path / "t.exr"), img, compression="piz")
-    p = str(tmp_path / "piz.exr")
-    with open(p, "wb") as f:  # a PIZ header: the reader refuses before any chunk
-        f.write(_header(_chlist((("Y", 2),)), 4, 8, 8))
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        texr.read_exr(p)
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        tio.read_disparity(p)
+    """PIZ (wavelet + Huffman, the native codec): FLOAT Y and RGB files the
+    port writes are the JAX writer's bytes and read back in both packages;
+    HALF and HALF + FLOAT files compressed by either package's codec read
+    alike in both; through io.read_disparity too."""
+    for channels in (0, 3):
+        img = _image(channels, seed=20 + channels, h=75, w=41)
+        t, j = str(tmp_path / f"t{channels}.exr"), str(tmp_path / f"j{channels}.exr")
+        texr.write_exr(t, img, compression="piz")
+        jexr.write_exr(j, img, compression="piz")
+        assert open(t, "rb").read() == open(j, "rb").read()
+        np.testing.assert_array_equal(jexr.read_exr(t), img)
+        np.testing.assert_array_equal(texr.read_exr(j), img)
+    rng = np.random.RandomState(3)
+    y, x = np.mgrid[0:70, 0:45]
+    smooth = (np.sin(x / 6.0 + y / 9.0) * 2.0).astype(np.float16)
+    for planes in ((("B", smooth), ("G", (smooth * 0.5).astype(np.float16)), ("R", -smooth)),
+                   (("Y", smooth), ("Z", (rng.rand(70, 45) * 4).astype(np.float32)))):
+        for name, compress in (("port", tnative.piz_compress), ("jax", jnative.piz_compress)):
+            p = str(tmp_path / f"half_{name}_{planes[0][0]}.exr")
+            _piz_half_file(p, planes, compress)
+            want, got = jexr.read_exr(p), texr.read_exr(p)
+            assert got.dtype == np.float32 and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+            first = dict(planes)["R" if planes[0][0] == "B" else "Y"]
+            np.testing.assert_array_equal(got[..., 0], first.astype(np.float32))
+    d = _image(0, seed=30, h=40, w=33)
+    jexr.write_exr(str(tmp_path / "d.exr"), d, compression="piz")
+    np.testing.assert_array_equal(tio.read_disparity(str(tmp_path / "d.exr")), d)
 
 
 def test_disparity_exr_through_io(tmp_path):

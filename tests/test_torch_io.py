@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from facebook360_dep_tpu.core import exr as jexr
 from facebook360_dep_tpu.core import io as jio
 from facebook360_dep_tpu_torch.core import exr, imagetypes, io, png
 from facebook360_dep_tpu_torch.ops import sampling
@@ -91,14 +92,55 @@ def test_disparity_png_and_color_match_jax_io(tmp_path):
 
 
 def test_exr_not_ported(tmp_path):
-    """EXR disparity IO is ported except PIZ compression (the native codec):
-    a .exr map round-trips, PIZ raises (tests/test_torch_exr.py holds the
-    codec against the JAX package's)."""
+    """EXR disparity IO is ported with PIZ compression (the native codec): a
+    .exr map round-trips, and a PIZ map written by either package reads
+    back equal in the other (tests/test_torch_exr.py holds the codec against
+    the JAX package's)."""
     d = np.arange(6, dtype=np.float32).reshape(2, 3)
     io.write_disparity(str(tmp_path / "d.exr"), d)
     np.testing.assert_array_equal(io.read_disparity(str(tmp_path / "d.exr")), d)
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        exr.write_exr(str(tmp_path / "p.exr"), d, compression="piz")
+    rng = np.random.RandomState(4)
+    m = (rng.rand(45, 37) * 2).astype(np.float32)
+    m[3, 4] = np.nan
+    exr.write_exr(str(tmp_path / "p.exr"), m, compression="piz")
+    np.testing.assert_array_equal(jio.read_disparity(str(tmp_path / "p.exr")), m)
+    jexr.write_exr(str(tmp_path / "j.exr"), m, compression="piz")
+    np.testing.assert_array_equal(io.read_disparity(str(tmp_path / "j.exr")), m)
+
+
+@pytest.mark.parametrize("ext,dtype,channels", [(".jpg", np.uint8, 3), (".jpeg", np.uint8, 1),
+                                                (".tif", np.uint16, 3), (".tiff", np.uint8, 4),
+                                                (".tif", np.uint16, 1), (".TIF", np.uint8, 3)])
+def test_jpeg_and_tiff_read_as_jax_reads_them(tmp_path, ext, dtype, channels):
+    """read_color and image_size of JPEG and TIFF (through OpenCV) give the
+    JAX io's arrays and sizes exactly."""
+    img = _image(dtype, channels, seed=channels)
+    p = str(tmp_path / f"a{ext}")
+    assert cv2.imwrite(p, _bgr(img))
+    got = io.read_color(p)
+    assert got.dtype == np.float32 and got.shape == img.shape[:2] + (max(channels, 3),)
+    np.testing.assert_array_equal(got, jio.read_color(p))
+    assert io.image_size(p) == jio.image_size(p) == (img.shape[1], img.shape[0])
+
+
+def test_jpeg_tree_level_sizes_and_missing_cv2(tmp_path, monkeypatch):
+    """get_pyramid_level_sizes on a JPEG tree; where OpenCV is missing the
+    JPEG branch raises naming the format, and PNG needs no OpenCV."""
+    for level, (w, h) in {0: (48, 36), 1: (24, 18)}.items():
+        d = imagetypes.image_dir(tmp_path, "color_levels", level, "cam0")
+        os.makedirs(d)
+        cv2.imwrite(os.path.join(d, "000000.jpg"), np.full((h, w, 3), 128, np.uint8))
+    root = imagetypes.image_dir(tmp_path, "color_levels")
+    assert io.get_pyramid_level_sizes(root) == jio.get_pyramid_level_sizes(root) == {0: (48, 36), 1: (24, 18)}
+    io.write_color(str(tmp_path / "a.png"), np.zeros((4, 5, 3), np.float32))
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    with pytest.raises(RuntimeError, match=r"reading \.jpg images needs OpenCV"):
+        io.read_color(os.path.join(root, "level_0", "cam0", "000000.jpg"))
+    with pytest.raises(RuntimeError, match=r"\.jpg"):
+        io.get_pyramid_level_sizes(root)
+    assert io.read_color(str(tmp_path / "a.png")).shape == (4, 5, 3)
+    with pytest.raises(NotImplementedError, match="PNG, JPEG or TIFF"):
+        io.read_color(str(tmp_path / "a.bmp"))
 
 
 def test_pyramid_level_sizes_and_first_image(tmp_path):
