@@ -65,7 +65,19 @@
    CPU (byte-identical files); runs view_fused at 2048x1024 from the rig
    center (K4 launched), whose covered share must reach 90% of the eqrcolor
    export's and whose PSNR over pixels both cover must be >= 30 dB; prints
-   each stage's wall time and the peak device memory.
+   each stage's wall time and the peak device memory;
+11. calibrates the sphere rig of step 4 (in its tree, after step 9) with the
+   port's calibration CLIs: (a) cli/calibration.main on the 16 level-0
+   colors (2048x1536, --max_corners 2000, --min_depth_m 1 --max_depth_m 100,
+   --perturb_rotations 0.02, principals and focals locked, 10 passes):
+   corners and matches in float32, triangulation and bundle adjustment in
+   float64 on the card; the median reprojection error must be <= 0.5 px
+   and the gauge-aligned forward-vector RMSE <= 0.65 of the perturbed
+   rig's; (b) main_geometric on 10,000 artificial points with 0.5 px of
+   noise, --perturb_rotations 0.01 --perturb_principals 2: median < 0.8
+   px, and the same solve on the CPU must agree with the card's within
+   CALIB_CARD_CPU_TOLERANCE; prints corners, matches, each pass's median,
+   the stage times and the peak device memory.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -792,6 +804,121 @@ def run_publish(root: str, out_root: str, dev):
     return metrics, k4
 
 
+# step 11's bars: the reference's --max_error for the image-matched solve and
+# tests/test_features.py's share of the injected rotation it must remove;
+# tests/test_calibration.py:67-75's median for artificial points with 0.5 px
+# of noise
+CALIB_MATCHED_MEDIAN_BAR = 0.5
+CALIB_FORWARD_SHARE_BAR = 0.65
+CALIB_ARTIFICIAL_MEDIAN_BAR = 0.8
+# card against CPU on (b): the largest differences of the two solved rigs
+# (positions are locked) and of their medians, ~2000x what a first run on
+# the card measured (rotation 2.0e-12, principal 4.7e-6 px, focal 7.4e-6 px,
+# median 1.0e-11 px): the card's float64 scatter-adds sum in another order
+# from run to run, and the LM's accept test may then flip
+CALIB_CARD_CPU_TOLERANCE = dict(position=1e-9, rotation=1e-8, principal=0.01, focal=0.01, median=1e-8)
+
+
+def gauge_aligned_forward_rmse(rig, truth) -> float:
+    """RMSE of the cameras' forward vectors against the truth's after the
+    best common rotation (tests/test_features.py): with positions locked, a
+    rotation of the whole rig is nearly free on a small-baseline ring."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+
+    fa = -cam.camera_to_numpy(rig.cameras).rotation[:, 2]
+    fb = -cam.camera_to_numpy(truth.cameras).rotation[:, 2]
+    rot, _ = Rotation.align_vectors(fb, fa)
+    return float(np.sqrt(np.mean(np.sum((rot.apply(fa) - fb) ** 2, -1))))
+
+
+def rig_difference(a, b) -> dict:
+    """Largest absolute differences of two rigs' solved fields."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+
+    ca, cb = cam.camera_to_numpy(a.cameras), cam.camera_to_numpy(b.cameras)
+    return {f: float(np.abs(getattr(ca, f) - getattr(cb, f)).max())
+            for f in ("position", "rotation", "principal", "focal")}
+
+
+def run_calibration(root: str, dev):
+    """Step 11: the port's calibration CLIs on the sphere tree at ``root``.
+    (a) cli/calibration.main (match corners, then the 10-pass solve) on the
+    16 level-0 colors with --perturb_rotations 0.02 and the intrinsics
+    locked; (b) main_geometric on 10,000 artificial points with 0.5 px of
+    noise, --perturb_rotations 0.01 --perturb_principals 2, on the card and
+    again on the CPU. Returns the metrics."""
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import calibration as calib_cli
+    from facebook360_dep_tpu_torch.core import camera as cam
+
+    rig_path = os.path.join(root, "rigs/rig_calibrated.json")
+    out = os.path.join(root, "calibration")
+    truth = cam.load_rig(rig_path)
+
+    def solve(name, entry, argv, device):
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t = time.time()
+        median = getattr(calib_cli, entry)(argv, device=device, timings=timings)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.time() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else None
+        log(f"calibration {name} on {device}: {seconds:.2f} s, median {median:.4f} px, pass medians "
+            f"{[round(m, 4) for m in timings['pass_medians']]}; stage s "
+            f"{ {k: round(v, 3) for k, v in timings.items() if k != 'pass_medians'} }"
+            + (f"; peak device memory {peak:.3f} GiB" if peak is not None else ""))
+        return dict(seconds=seconds, median=median, pass_medians=timings["pass_medians"], peak_gib=peak,
+                    stage_s={k: v for k, v in timings.items() if k != "pass_medians"})
+
+    matched = solve("(a) image-matched", "main", [
+        "--color", os.path.join(root, "video/color_levels/level_0"), "--rig_in", rig_path,
+        "--matches", os.path.join(out, "matches.json"), "--rig_out", os.path.join(out, "rig_matched.json"),
+        "--min_depth_m", "1", "--max_depth_m", "100", "--perturb_rotations", "0.02",
+        "--lock_principals", "true", "--lock_focal", "true"], str(dev))
+    with open(os.path.join(out, "matches.json")) as f:
+        matches = json.load(f)
+    corners = [len(v) for v in matches["images"].values()]
+    matched.update(corners_total=sum(corners), corners_min=min(corners), corners_max=max(corners),
+                   pairs=len(matches["all_matches"]),
+                   matches=sum(len(m["matches"]) for m in matches["all_matches"]))
+    before = gauge_aligned_forward_rmse(cam.perturb_cameras(truth, rot_amount=0.02, seed=0), truth)
+    after = gauge_aligned_forward_rmse(cam.load_rig(os.path.join(out, "rig_matched.json")), truth)
+    matched.update(forward_rmse_perturbed=before, forward_rmse_solved=after)
+    log(f"  corners {matched['corners_total']} ({matched['corners_min']}-{matched['corners_max']} a camera), "
+        f"{matched['matches']} matches over {matched['pairs']} pairs; gauge-aligned forward RMSE "
+        f"{before:.5f} -> {after:.5f} ({after / before:.3f} of the perturbed rig's, bar "
+        f"{CALIB_FORWARD_SHARE_BAR}); median bar {CALIB_MATCHED_MEDIAN_BAR}")
+    if not (matched["median"] <= CALIB_MATCHED_MEDIAN_BAR and after <= CALIB_FORWARD_SHARE_BAR * before):
+        raise AssertionError(f"image-matched calibration: median {matched['median']}, forward RMSE "
+                             f"{before} -> {after}")
+
+    artificial_argv = ["--rig_in", rig_path, "--point_error_stddev", "0.5", "--perturb_rotations", "0.01",
+                       "--perturb_principals", "2"]
+    card = solve("(b) 10,000 artificial points", "main_geometric",
+                 artificial_argv + ["--rig_out", os.path.join(out, "rig_artificial.json")], str(dev))
+    cpu = solve("(b) 10,000 artificial points", "main_geometric",
+                artificial_argv + ["--rig_out", os.path.join(out, "rig_artificial_cpu.json")], "cpu")
+    diff = rig_difference(cam.load_rig(os.path.join(out, "rig_artificial.json")),
+                          cam.load_rig(os.path.join(out, "rig_artificial_cpu.json")))
+    diff["median"] = abs(card["median"] - cpu["median"])
+    log(f"  card against CPU: largest differences {diff} (tolerance {CALIB_CARD_CPU_TOLERANCE})")
+    if not card["median"] < CALIB_ARTIFICIAL_MEDIAN_BAR:
+        raise AssertionError(f"artificial-points calibration: median {card['median']}")
+    if any(diff[k] > tol for k, tol in CALIB_CARD_CPU_TOLERANCE.items()):
+        raise AssertionError(f"artificial-points calibration: card and CPU rigs differ: {diff}")
+    return dict(calib_matched=matched, calib_artificial=card, calib_artificial_cpu=cpu,
+                calib_card_vs_cpu=diff)
+
+
 def write_project(root: str, dev, widths=WIDTHS):
     """The 16-camera sphere scene rendered at every pyramid width, as a
     project tree (color_levels/level_N/<cam>/000000.png + rig). Returns the
@@ -1258,14 +1385,19 @@ def main(argv=None) -> int:
         publish, k4_playback = run_publish(root, out_root, dev)
         log(f"publish and playback (step 10): {time.time() - t:.1f} s")
 
-    with tempfile.TemporaryDirectory(prefix="fdt_chain_") as tmp:
+        with tempfile.TemporaryDirectory(prefix="fdt_chain_") as tmp:
+            t = time.time()
+            chain, chain_launches = run_foreground_chain(tmp, dev, profile_dir=args.profile)
+            log(f"foreground chain: {time.time() - t:.1f} s; {smi}")
+
         t = time.time()
-        chain, chain_launches = run_foreground_chain(tmp, dev, profile_dir=args.profile)
-        log(f"foreground chain: {time.time() - t:.1f} s; {smi}")
+        calibration = run_calibration(root, dev)
+        log(f"calibration (step 11): {time.time() - t:.1f} s; {smi}")
 
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
-                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain}))
+                    "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
+                    **calibration}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of facebook360_dep_tpu for one NVIDIA H100.
 
 Mirrors the JAX package's sub-packages (``core``, ``ops``, ``depth``,
-``render``, ``stream``, ``cli``). Plain tensor code is PyTorch; the Pallas kernels of the
+``render``, ``stream``, ``calib``, ``cli``). Plain tensor code is PyTorch; the Pallas kernels of the
 depth-estimation hot path are hand-written CUDA C++ under ``csrc/``, built at
 first use by :mod:`facebook360_dep_tpu_torch.ops._build`; the host codecs of
 the publish path (``stream/_native/*.cpp``) build with g++ at first use by

@@ -240,6 +240,17 @@ def rig_point(cam: Camera, pix: torch.Tensor, depth) -> torch.Tensor:
     return _vec_field(cam, cam.position, ray) + ray * d[..., None]
 
 
+def rig_near_infinity(cam: Camera, pix: torch.Tensor) -> torch.Tensor:
+    """The point along the pixel's ray at kNearInfinity."""
+    return rig_point(cam, pix, KNEAR_INFINITY)
+
+
+def is_behind(cam: Camera, rig_pts: torch.Tensor) -> torch.Tensor:
+    """The point lies on or behind the camera's image plane."""
+    v = rig_pts - _vec_field(cam, cam.position, rig_pts)
+    return _dot3(_vec_field(cam, cam.backward, rig_pts), v) >= 0
+
+
 def is_outside_fov(cam: Camera, rig_pts: torch.Tensor) -> torch.Tensor:
     """FOV cone test. util/Camera.h:154-164 (general form covers cosFov == 0)."""
     v = rig_pts - _vec_field(cam, cam.position, rig_pts)
@@ -510,6 +521,10 @@ def normalize_rig(rig: Rig) -> Rig:
     return rig._replace(cameras=normalize(rig.cameras))
 
 
+def rescale_rig(rig: Rig, new_resolution) -> Rig:
+    return rig._replace(cameras=rescale(rig.cameras, new_resolution))
+
+
 def filter_destinations(rig: Rig, destinations: str) -> Rig:
     """Comma-separated id subset, preserving request order. util/ImageUtil.cpp:110-125."""
     if not destinations:
@@ -521,3 +536,59 @@ def filter_destinations(rig: Rig, destinations: str) -> Rig:
 def map_src_to_dst_indexes(rig_src: Rig, rig_dst: Rig) -> np.ndarray:
     """For each dst camera, its index in the src rig. DerpUtil.cpp:75-88."""
     return np.asarray([rig_src.find(d) for d in rig_dst.ids], np.int32)
+
+
+def camera_to_numpy(cam: Camera) -> Camera:
+    """The camera's fields as numpy arrays on the host (float fields float64)."""
+    return Camera(*(f.detach().cpu().to(torch.float64 if f.is_floating_point() else f.dtype).numpy() for f in cam))
+
+
+def perturb_cameras(
+    rig: Rig,
+    pos_amount: float = 0.0,
+    rot_amount: float = 0.0,
+    principal_amount: float = 0.0,
+    focal_amount: float = 0.0,
+    seed: int = 0,
+) -> Rig:
+    """Synthetic-experiment rig perturbation (first camera pose fixed).
+    util/Camera.h:213-232 / util/Camera.cpp:260-280.
+
+    Host numpy, with the JAX package's ``RandomState`` draws in its order,
+    so that a seed gives the same rig in both packages. The result keeps
+    the rig's device and float dtype.
+    """
+    rng = np.random.RandomState(seed)
+
+    def jitter(v, amount):
+        return v + amount * 2 * (rng.rand(*np.shape(v)) - 0.5)
+
+    cams = []
+    for i in range(len(rig.ids)):
+        c = camera_to_numpy(rig.camera(i))
+        position, rotation = c.position, c.rotation
+        if i != 0:
+            position = jitter(position, pos_amount)
+            angle_axis = _rotation_to_angle_axis(rotation)
+            rotation = _angle_axis_to_rotation(jitter(angle_axis, rot_amount))
+        principal = jitter(c.principal, principal_amount)
+        focal = c.focal
+        if focal_amount != 0:
+            scalar = float(jitter(focal[0], focal_amount))
+            focal = np.asarray([scalar, -scalar], focal.dtype)
+        cams.append(c._replace(position=position, rotation=rotation, principal=principal, focal=focal))
+    ref = rig.cameras.position
+    return rig._replace(cameras=camera_from_numpy(Camera(*(np.stack(f) for f in zip(*cams))),
+                                                  device=ref.device, dtype=ref.dtype))
+
+
+def _rotation_to_angle_axis(r: np.ndarray) -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_matrix(r).as_rotvec()
+
+
+def _angle_axis_to_rotation(rotvec: np.ndarray) -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_rotvec(rotvec).as_matrix()

@@ -2,7 +2,8 @@
 device: without a visible card they raise, and never carry on silently on
 the CPU. The tests that compare each CLI with the JAX package's pass
 ``device="cpu"`` (test_torch_derp_cli.py, test_torch_fg_depth.py,
-test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py)."""
+test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py,
+test_torch_calib_cli.py)."""
 
 import importlib
 
@@ -26,6 +27,10 @@ ENTRY_POINTS = {
                              "--format", "eqrcolor"],
     "convert_to_binary": ["--rig", "r.json", "--bin", "b", "--disparity", "d", "--fused", "f"],
     "view_fused": ["--rig", "r.json", "--catalog", "c.json", "--output", "o"],
+    "calibration": ["--color", "c", "--rig_in", "r.json", "--matches", "m.json", "--rig_out", "o.json"],
+    "align_point_cloud": ["--point_cloud", "p.xyz", "--rig_in", "r.json", "--disparity", "d", "--rig_out", "o.json"],
+    "align_colors": ["--rig_red", "r.json", "--rig_green", "g.json", "--rig_blue", "b.json", "--color", "c",
+                     "--output", "o"],
 }
 
 
@@ -54,6 +59,17 @@ def test_cli_without_a_device_raises_without_a_card(no_card, name):
     mod = importlib.import_module(f"facebook360_dep_tpu_torch.cli.{name}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(ENTRY_POINTS[name])
+
+
+@pytest.mark.parametrize("entry, argv", [
+    ("main_match_corners", ["--color", "c", "--rig_in", "r.json", "--matches", "m.json"]),
+    ("main_geometric", ["--rig_in", "r.json", "--rig_out", "o.json"]),
+])
+def test_calibration_stages_without_a_device_raise_without_a_card(no_card, entry, argv):
+    from facebook360_dep_tpu_torch.cli import calibration
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(calibration, entry)(argv)
 
 
 def test_depth_estimator_without_a_device_raises_without_a_card(no_card):
