@@ -77,7 +77,23 @@
    noise, --perturb_rotations 0.01 --perturb_principals 2: median < 0.8
    px, and the same solve on the CPU must agree with the card's within
    CALIB_CARD_CPU_TOLERANCE; prints corners, matches, each pass's median,
-   the stage times and the peak device memory.
+   the stage times and the peak device memory;
+12. runs a shoot from RAW frames through the project driver, in a fresh
+   project: the 16 level-0 colors of step 4's scene mosaicked (GBRG) and
+   written with rawio.write_raw as 16-bit dumps (one also as a DNG through
+   raw_to_rgb --dng, read back within 2/65535); raw_to_rgb per camera on
+   the card (EDGE_AWARE, no tone curve, PNG16) into video/color, whose PSNR
+   against the mosaicked colors (8 px border out) must reach 30 dB on every
+   camera; isp.process on camera 0 and on a noise mosaic in each demosaic
+   mode with a full non-identity config on the card and on the CPU (max abs
+   difference <= 1e-4, FREQUENCY 1e-3); then dep.main init, depth (render_pipeline's
+   resize_images and derp_cli as subprocesses on the card: a farm child
+   must see DEP_TORCH_DEVICE unset and the card), depth again (every stage
+   cached, no work), export eqrcolor (simple_mesh_renderer) and status
+   (0). The farm's level-0 median relative error must stay below 0.05 and
+   the export must cover more than 10% of its pixels. The subprocesses'
+   kernel launches are not counted: the port has no fallback, so a child
+   that runs at all ran K1-K4 on the card.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -637,7 +653,7 @@ def psnr_db(a, b) -> float:
 
 class _Messages(logging.Handler):
     """Keeps the messages of the records it handles (the simplifier's budget
-    warnings)."""
+    warnings, the farm's stage lines)."""
 
     def __init__(self):
         super().__init__()
@@ -917,6 +933,199 @@ def run_calibration(root: str, dev):
         raise AssertionError(f"artificial-points calibration: card and CPU rigs differ: {diff}")
     return dict(calib_matched=matched, calib_artificial=card, calib_artificial_cpu=cpu,
                 calib_card_vs_cpu=diff)
+
+
+# step 12's bars: the ISP's PSNR against the colors it was mosaicked from
+# (interior, ISP_BORDER_PX out), card against CPU per demosaic mode, and the
+# DNG's round trip (one 16-bit step of rounding each way)
+ISP_PSNR_BAR_DB = 30.0
+ISP_BORDER_PX = 8
+ISP_CARD_CPU_TOLERANCE = {"BILINEAR": 1e-4, "EDGE_AWARE": 1e-4, "FREQUENCY": 1e-3, "CHROMA_SUPPRESSED": 1e-4}
+DNG_TOLERANCE = 2.0 / 65535
+ISP_PATTERN = "GBRG"  # IspConfig's default
+ISP_NOISE_SEED = 0
+# every stage of process() away from identity (stuck pixels with r = 1)
+ISP_FULL_CONFIG = dict(
+    bayer_pattern=ISP_PATTERN, companding_lut=[(0.0, 0.0), (0.25, 0.3), (0.75, 0.8), (1.0, 1.0)],
+    black_level=(0.02, 0.03, 0.02), white_balance_gain=(1.1, 1.0, 1.2), clamp_max=(0.98, 0.99, 0.97),
+    vignette_roll_off_h=[(0.9, 0.92, 0.9), (1.0, 1.0, 1.0), (0.9, 0.92, 0.9)],
+    vignette_roll_off_v=[(0.95, 0.95, 0.94), (1.0, 1.0, 1.0), (0.95, 0.95, 0.94)],
+    ccm=((1.2, -0.1, -0.1), (-0.15, 1.3, -0.15), (0.0, -0.25, 1.25)), saturation=1.1,
+    gamma=(0.9, 0.85, 0.9), contrast=1.05, low_key_boost=(0.05, 0.02, 0.05), high_key_boost=(-0.03, 0.0, 0.02),
+    sharpening=(0.2, 0.3, 0.2), stuck_pixel_radius=1, stuck_pixel_threshold=0.3,
+    stuck_pixel_darkness_threshold=0.05)
+
+
+def isp_card_against_cpu(mosaic0, dev):
+    """Step 12(3): isp.process on the card and on the CPU in each demosaic
+    mode with ISP_FULL_CONFIG, on camera 0's mosaic with a stuck sensel every
+    97th and on a mosaic of uniform noise from ISP_NOISE_SEED (the sphere's
+    gradients are small, so a homogeneity vote that flipped would move it
+    less); returns {mode: (max abs difference of the two, card seconds on
+    camera 0)}."""
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.isp import pipeline as isp
+
+    raw = mosaic0.clone().cpu()
+    raw.view(-1)[::97] = 1.0
+    noise = torch.from_numpy(np.random.default_rng(ISP_NOISE_SEED).random(tuple(raw.shape), dtype=np.float32))
+    raw_card = raw.to(dev)
+    out = {}
+    for mode in isp.DEMOSAIC_FILTERS:
+        cfg = isp.IspConfig(**ISP_FULL_CONFIG, demosaic_filter=mode)
+        cpu = isp.process(raw, cfg)
+        times = []
+        for _ in range(4):  # the first warms up (cuFFT plans, allocator)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            card = isp.process(raw_card, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        seconds = sorted(times[1:])[1]
+        err = float((card.cpu() - cpu).abs().max())
+        err_noise = float((isp.process(noise.to(dev), cfg).cpu() - isp.process(noise, cfg)).abs().max())
+        log(f"  isp.process {mode}: card against CPU max abs difference {err:.3e} on camera 0, {err_noise:.3e} "
+            f"on noise (tolerance {ISP_CARD_CPU_TOLERANCE[mode]:g}), card {seconds * 1e3:.2f} ms at "
+            f"{raw.shape[1]}x{raw.shape[0]}")
+        if not max(err, err_noise) <= ISP_CARD_CPU_TOLERANCE[mode]:
+            raise AssertionError(f"isp.process {mode}: card and CPU differ by {err} on camera 0, {err_noise} on noise")
+        out[mode] = (max(err, err_noise), seconds)
+    return out
+
+
+def run_shoot(tmp: str, rig, gt0, dev):
+    """Step 12: a shoot from RAW frames through the project driver on the
+    card. The 16 level-0 colors of step 4's sphere scene are mosaicked
+    (GBRG) and written as 16-bit RAW dumps; raw_to_rgb (EDGE_AWARE, no tone
+    curve, PNG16) makes the project's color frames; dep init, depth (twice:
+    the second must find every chunk cached), export eqrcolor and status run
+    the farm's subprocess stages on the card. Returns the metrics."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.cli import DEVICE_ENV, dep, raw_to_rgb
+    from facebook360_dep_tpu_torch.core import camera as cam, imagetypes, io, rawio
+    from facebook360_dep_tpu_torch.farm import runner
+    from facebook360_dep_tpu_torch.isp import pipeline as isp
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    w, h = WIDTHS[0], height(WIDTHS[0])
+    project = os.path.join(tmp, "shoot")
+    raw_dir = os.path.join(tmp, "raw")
+    os.makedirs(raw_dir)
+    os.makedirs(os.path.join(project, "rigs"))
+    cam.save_rig(os.path.join(project, "rigs/rig_calibrated.json"), rig)
+    isp_json = os.path.join(raw_dir, "isp.json")
+    with open(isp_json, "w") as f:
+        json.dump({"CameraIsp": {"bitsPerPixel": 16, "width": w, "height": h, "bayerPattern": ISP_PATTERN}}, f)
+
+    # (1) the RAW frames, and one DNG read back
+    colors, _ = synthetic.render_sphere_scene(rig, (w, h), radius=5.0, device=dev)
+    mosaics = [isp.mosaic(c, ISP_PATTERN) for c in colors]
+    for cam_id, m in zip(rig.ids, mosaics):
+        rawio.write_raw(os.path.join(raw_dir, cam_id + ".raw"), m.cpu().numpy(), 16)
+    dng = os.path.join(tmp, "cam0.dng")
+    raw_to_rgb.main(["--input_image_path", os.path.join(raw_dir, rig.ids[0] + ".raw"), "--output_image_path", dng,
+                     "--isp_config_path", isp_json, "--dng"], device=dev)
+    back, _ = rawio.read_dng(dng)
+    dng_err = float(np.abs(back - mosaics[0].cpu().numpy()).max())
+    log(f"  DNG of {rig.ids[0]} read back within {dng_err:.3e} (tolerance {DNG_TOLERANCE:.3e})")
+    if not dng_err <= DNG_TOLERANCE:
+        raise AssertionError(f"DNG round trip: {dng_err}")
+
+    # (2) the ISP into the project's color tree; the shoot's background
+    # frame (dep init makes background/color, which verify_data then
+    # requires for every camera) is the same static sphere
+    isp_s, psnr = [], []
+    b = ISP_BORDER_PX
+    for i, cam_id in enumerate(rig.ids):
+        out_png = imagetypes.gen_filename(project, "color", None, cam_id, "000000", "png")
+        os.makedirs(os.path.dirname(out_png))
+        t = time.time()
+        raw_to_rgb.main(["--input_image_path", os.path.join(raw_dir, cam_id + ".raw"),
+                         "--output_image_path", out_png, "--isp_config_path", isp_json,
+                         "--demosaic_filter", "EDGE_AWARE", "--apply_tone_curve", "false", "--output_bpp", "16"],
+                        device=dev)
+        isp_s.append(time.time() - t)
+        psnr.append(psnr_db(io.read_color(out_png)[b:-b, b:-b], colors[i].cpu().numpy()[b:-b, b:-b]))
+        background = imagetypes.gen_filename(project, "background_color", None, cam_id, "000000", "png")
+        os.makedirs(os.path.dirname(background), exist_ok=True)
+        shutil.copyfile(out_png, background)
+    log(f"raw_to_rgb (step 12): {sum(isp_s):.2f} s for {len(isp_s)} cameras, "
+        f"{[round(s, 3) for s in isp_s]} s a camera; PSNR against the mosaicked colors mean "
+        f"{np.mean(psnr):.2f} dB, least {min(psnr):.2f} dB (bar {ISP_PSNR_BAR_DB})")
+    if not min(psnr) >= ISP_PSNR_BAR_DB:
+        raise AssertionError(f"ISP PSNR {psnr}")
+
+    # (3) the card against the CPU, every demosaic mode, full config
+    modes = isp_card_against_cpu(mosaics[0], dev)
+    del colors, mosaics
+    torch.cuda.empty_cache()
+
+    # (4) the project driver: its stages are subprocesses that must run on
+    # the card, so the device variable is unset here, and a child the farm
+    # runner starts must see it unset and see the card
+    if DEVICE_ENV in os.environ:
+        raise AssertionError(f"{DEVICE_ENV} is set: {os.environ[DEVICE_ENV]}")
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    probe = os.path.join(tmp, "child_env.json")
+    runner.Pipeline().run_stage(runner.Stage(
+        name="child_env", outputs=lambda c: [probe],
+        command=lambda c: [sys.executable, "-c",
+                           "import json, os, sys, torch; json.dump({'env': os.environ.get(sys.argv[2]), "
+                           "'cuda': torch.cuda.is_available()}, open(sys.argv[1], 'w'))", probe, DEVICE_ENV]),
+        runner.chunk_frames(0, 0, 1))
+    with open(probe) as f:
+        child = json.load(f)
+    log(f"  a farm child's environment: {DEVICE_ENV}={child['env']}, torch.cuda.is_available() {child['cuda']}")
+    if child["env"] is not None or not child["cuda"]:
+        raise AssertionError(f"farm child: {child}")
+
+    records = _Messages()
+    logging.getLogger("farm").addHandler(records)
+    common = ["--project_root", project, "--first", "000000", "--last", "000000",
+              "--resolution", str(WIDTHS[0]), "--min_depth_m", "1", "--max_depth_m", "100"]
+    steps = [("init", ["init", "--project_root", project]), ("depth", ["depth", *common]),
+             ("depth again", ["depth", *common]), ("export", ["export", *common, "--format", "eqrcolor"]),
+             ("status", ["status", "--project_root", project])]
+    dep_s, stage_lines = {}, {}
+    try:
+        for name, argv in steps:
+            records.messages.clear()
+            t = time.time()
+            rc = dep.main(argv)
+            dep_s[name] = time.time() - t
+            stage_lines[name] = [m for m in records.messages if m.startswith(("done:", "==="))
+                                 or "cached" in m]
+            log(f"dep {name}: {dep_s[name]:.2f} s, rc {rc}; " + "; ".join(stage_lines[name]))
+            if rc not in (0, None):
+                raise AssertionError(f"dep {name} returned {rc}")
+            if name == "depth again":  # every stage listed finds its one chunk cached
+                listed = [m for m in records.messages if m.startswith("=== stage")]
+                cached = [m for m in records.messages if m.endswith("1/1 chunks cached, skipping")]
+                ran = [m for m in records.messages if m.startswith("done:")]
+                if ran or not listed or len(cached) != len(listed):
+                    raise AssertionError(f"the resumed depth run did work: {records.messages}")
+    finally:
+        logging.getLogger("farm").removeHandler(records)
+
+    # (5) the farm's solve and export
+    med, coverage, rmse = check_level0(project, rig, gt0)
+    export = io.read_color(os.path.join(imagetypes.image_dir(project, "exports_eqrcolor"), "000000.png"))
+    export_cov = float((export[..., :3].max(axis=-1) > 0).mean())  # uncovered pixels are written black
+    log(f"  eqrcolor export {export.shape}, finite {bool(np.isfinite(export).all())}, covered share "
+        f"{export_cov:.4f}")
+    if export.shape[:2] != (1024, 2048) or not np.isfinite(export).all() or not export_cov > 0.1:
+        raise AssertionError(f"eqrcolor export {export.shape}: covered share {export_cov}")
+    return dict(shoot_isp_s=isp_s, shoot_isp_psnr_db=psnr, shoot_dng_err=dng_err,
+                shoot_isp_card_vs_cpu={m: e for m, (e, _) in modes.items()},
+                shoot_isp_card_s={m: s for m, (_, s) in modes.items()}, shoot_dep_s=dep_s,
+                shoot_stage_lines=stage_lines, shoot_level0_median_rel_err=med, shoot_level0_coverage=coverage,
+                shoot_level0_covered_rel_rmse=rmse, shoot_export_covered_share=export_cov)
 
 
 def write_project(root: str, dev, widths=WIDTHS):
@@ -1394,10 +1603,14 @@ def main(argv=None) -> int:
         calibration = run_calibration(root, dev)
         log(f"calibration (step 11): {time.time() - t:.1f} s; {smi}")
 
+        t = time.time()
+        shoot = run_shoot(os.path.join(root, "step12"), rig, gt0, dev)
+        log(f"shoot from RAW through dep (step 12): {time.time() - t:.1f} s; {smi}")
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
                     "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
-                    **calibration}))
+                    **calibration, **shoot}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),

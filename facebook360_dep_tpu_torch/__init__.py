@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of facebook360_dep_tpu for one NVIDIA H100.
 
 Mirrors the JAX package's sub-packages (``core``, ``ops``, ``depth``,
-``render``, ``stream``, ``calib``, ``cli``). Plain tensor code is PyTorch; the Pallas kernels of the
+``render``, ``stream``, ``calib``, ``isp``, ``farm``, ``cli``). Plain tensor code is PyTorch; the Pallas kernels of the
 depth-estimation hot path are hand-written CUDA C++ under ``csrc/``, built at
 first use by :mod:`facebook360_dep_tpu_torch.ops._build`; the host codecs of
 the publish path (``stream/_native/*.cpp``) build with g++ at first use by
@@ -9,7 +9,8 @@ the publish path (``stream/_native/*.cpp``) build with g++ at first use by
 
 The entry points (each CLI's ``main`` and ``DepthEstimator``) run on the card.
 Where none is visible they raise; a caller that wants the CPU, as the tests
-do, passes ``device="cpu"``.
+do, passes ``device="cpu"`` (a CLI also reads ``DEP_TORCH_DEVICE``, see
+:mod:`facebook360_dep_tpu_torch.cli`).
 """
 
 import torch

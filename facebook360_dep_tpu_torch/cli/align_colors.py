@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..ops import sampling
 

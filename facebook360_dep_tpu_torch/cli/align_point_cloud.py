@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..calib import rig_tools
 from ..core import camera as cam, io
 from ..ops import sampling

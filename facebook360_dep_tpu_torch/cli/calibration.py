@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from .. import resolve_device
+from . import resolve_device
 from ..calib import calibration as geo
 from ..calib import features
 from ..core import camera as cam, io
@@ -172,8 +172,10 @@ def run_geometric_calibration(args, dev, timings: dict | None = None) -> float:
     t0 = time.perf_counter()
     solved, median = geo.geometric_calibration(rig, feats, overlaps, opts, timings=timings)
     if getattr(args, "enable_timing", False):
-        # reference format: boost::timer at GeometricCalibration.cpp:1196-1198
-        log.info("-- Elapsed time: %.3f s (refine, %d passes)",
+        # timer of GeometricCalibration.cpp:1196-1198, written as DerpCLI's
+        # "-- Elapsed time: <s>s" so that log_reader's elapsed_s reads it
+        # (the JAX CLI's "%.3f s" escapes its own log_reader)
+        log.info("-- Elapsed time: %.3fs (refine, %d passes)",
                  time.perf_counter() - t0, args.pass_count)
     cam.save_rig(args.rig_out, solved)
     report = geo.rig_rmse_report(solved, ground_truth)
@@ -194,7 +196,7 @@ def main_match_corners(argv=None, *, device=None):
     t0 = time.perf_counter()
     matches = run_match_corners(args, dev)
     if args.enable_timing:
-        log.info("-- Elapsed time: %.3f s (matchCorners)", time.perf_counter() - t0)
+        log.info("-- Elapsed time: %.3fs (matchCorners)", time.perf_counter() - t0)
     return matches
 
 

@@ -22,7 +22,8 @@ import time
 import numpy as np
 import torch
 
-from .. import default_device, resolve_device
+from .. import default_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..render import dibr, rephoto
 

@@ -27,7 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..stream import adaptive as adaptive_mod
 from ..stream import fusion, mesh, native

@@ -21,6 +21,7 @@ import argparse
 import logging
 
 from ..depth.pipeline import DepthEstimator, DepthEstimatorOptions
+from . import resolve_device
 
 
 def str2bool(v: str) -> bool:
@@ -88,7 +89,7 @@ def main(argv=None, *, device=None) -> DepthEstimator:
     args = p.parse_args(argv)
     if args.coordinator_address:
         raise NotImplementedError("--coordinator_address: the multi-GPU path is not ported yet")
-    estimator = DepthEstimator(options_from_args(args), device=device)
+    estimator = DepthEstimator(options_from_args(args), device=resolve_device(device))
     estimator.run()
     return estimator
 

@@ -18,7 +18,7 @@ import os
 
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..render import foreground
 

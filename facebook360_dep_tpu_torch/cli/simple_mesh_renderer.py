@@ -19,7 +19,7 @@ import os
 
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..render import dibr
 from .compute_rephotography_errors import load_rig_images

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, imagetypes, io
 from ..depth.pipeline import generate_fov_masks
 from ..ops import cost as cost_ops, filters

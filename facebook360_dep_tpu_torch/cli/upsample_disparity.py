@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from .. import resolve_device
+from . import resolve_device
 from ..core import camera as cam, io
 from ..depth import pipeline as depth_pipeline
 from ..depth.pipeline import generate_fov_masks

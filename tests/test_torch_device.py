@@ -3,15 +3,25 @@ device: without a visible card they raise, and never carry on silently on
 the CPU. The tests that compare each CLI with the JAX package's pass
 ``device="cpu"`` (test_torch_derp_cli.py, test_torch_fg_depth.py,
 test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py,
-test_torch_calib_cli.py)."""
+test_torch_calib_cli.py, test_torch_isp.py). A CLI run with no ``device``
+takes it from ``DEP_TORCH_DEVICE`` (unset: the card; ``cpu``: the CPU; any
+other value raises), which is how the farm's subprocess stages are steered
+(test_torch_dep_driver.py)."""
 
 import importlib
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
 
 import facebook360_dep_tpu_torch as pkg
+from facebook360_dep_tpu_torch import cli
 from facebook360_dep_tpu_torch.depth import pipeline
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # each CLI that computes on a device, with its required flags (paths that
 # need not exist: the device is resolved before any file is read)
@@ -31,12 +41,15 @@ ENTRY_POINTS = {
     "align_point_cloud": ["--point_cloud", "p.xyz", "--rig_in", "r.json", "--disparity", "d", "--rig_out", "o.json"],
     "align_colors": ["--rig_red", "r.json", "--rig_green", "g.json", "--rig_blue", "b.json", "--color", "c",
                      "--output", "o"],
+    "raw_to_rgb": ["--input_image_path", "in.raw", "--output_image_path", "o.png", "--isp_config_path", "isp.json"],
+    "correct_vignetting": ["--raw", "in.png", "--out", "o.png", "--vignetting_x", "1,1", "--vignetting_y", "1,1"],
 }
 
 
 @pytest.fixture
 def no_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(cli.DEVICE_ENV, raising=False)
     monkeypatch.chdir(tmp_path)
 
 
@@ -75,3 +88,53 @@ def test_calibration_stages_without_a_device_raise_without_a_card(no_card, entry
 def test_depth_estimator_without_a_device_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.DepthEstimator(pipeline.DepthEstimatorOptions(input_root="in", output_root="out"))
+
+
+def test_device_variable_steers_a_cli_and_an_argument_beats_it(no_card, monkeypatch):
+    assert cli.DEVICE_ENV == "DEP_TORCH_DEVICE"
+    monkeypatch.setenv(cli.DEVICE_ENV, "")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.resolve_device(None)
+    monkeypatch.setenv(cli.DEVICE_ENV, "cpu")
+    assert cli.resolve_device(None) == torch.device("cpu")
+    for bad in ("cuda", "CPU", "gpu", "cuda:0"):
+        monkeypatch.setenv(cli.DEVICE_ENV, bad)
+        with pytest.raises(ValueError, match="DEP_TORCH_DEVICE"):
+            cli.resolve_device(None)
+        with pytest.raises(ValueError, match="DEP_TORCH_DEVICE"):
+            importlib.import_module("facebook360_dep_tpu_torch.cli.derp_cli").main(ENTRY_POINTS["derp_cli"])
+        assert cli.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_device_argument_beats_the_variable_in_a_cli(tmp_path, monkeypatch):
+    from facebook360_dep_tpu_torch.cli import raw_to_rgb
+
+    monkeypatch.setenv(cli.DEVICE_ENV, "bogus")
+    (tmp_path / "isp.json").write_text(json.dumps({"CameraIsp": {"width": 8, "height": 6, "bitsPerPixel": 8}}))
+    (tmp_path / "in.raw").write_bytes(bytes(range(48)))
+    argv = ["--input_image_path", str(tmp_path / "in.raw"), "--output_image_path", str(tmp_path / "o.png"),
+            "--isp_config_path", str(tmp_path / "isp.json")]
+    with pytest.raises(ValueError, match="DEP_TORCH_DEVICE"):
+        raw_to_rgb.main(argv)
+    raw_to_rgb.main(argv, device="cpu")
+    assert (tmp_path / "o.png").exists()
+
+
+@pytest.mark.parametrize("value, ok, message", [
+    (None, False, "no CUDA device"), ("cpu", True, ""), ("cuda:0", False, "DEP_TORCH_DEVICE='cuda:0'")])
+def test_device_variable_in_a_cli_subprocess(tmp_path, value, ok, message):
+    """``python -m`` a CLI with no card visible: unset raises, ``cpu`` runs,
+    any other value raises."""
+    (tmp_path / "isp.json").write_text(json.dumps({"CameraIsp": {"width": 8, "height": 6, "bitsPerPixel": 8}}))
+    (tmp_path / "in.raw").write_bytes(bytes(range(48)))
+    env = {k: v for k, v in os.environ.items() if k != cli.DEVICE_ENV}
+    env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    if value is not None:
+        env[cli.DEVICE_ENV] = value
+    result = subprocess.run(
+        [sys.executable, "-m", "facebook360_dep_tpu_torch.cli.raw_to_rgb", "--input_image_path",
+         str(tmp_path / "in.raw"), "--output_image_path", str(tmp_path / "o.png"), "--isp_config_path",
+         str(tmp_path / "isp.json")], env=env, capture_output=True, text=True, timeout=120)
+    assert (result.returncode == 0) == ok, result.stderr[-2000:]
+    assert (tmp_path / "o.png").exists() == ok
+    assert message in result.stderr
