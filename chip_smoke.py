@@ -93,7 +93,29 @@
    (0). The farm's level-0 median relative error must stay below 0.05 and
    the export must cover more than 10% of its pixels. The subprocesses'
    kernel launches are not counted: the port has no fallback, so a child
-   that runs at all ran K1-K4 on the card.
+   that runs at all ran K1-K4 on the card;
+13. runs the fixture generators, the inspection tools and the viewer in
+   process through each CLI's main(), in step 4's tree: (a) rig_simulator
+   --scene occluders (its built-in 16-camera ring at 2048x1536, ten 2/3-step
+   levels; the render by brute force over the room's 60 triangles, the
+   2048x1024 truth equirect by the BVH), derp_cli (K1-K3) and
+   compute_rephotography_errors (K4) on it: level-0 median relative error
+   < 0.05, TOTAL MSSIM >= 89.95, the JAX bench's readings printed as a
+   reference; (b) the production FTHETA shape (make_ftheta_ring_rig(15, 0.33,
+   3360x2160, the production distortion), 16 cameras) rendering the sphere
+   at 2048x1317 and nine smaller widths, and derp_cli: level-0 error < 0.05
+   inside the image circles; (c) render_tools geometric_consistency on
+   (a)'s level-0 maps (2 passes; K1 launched, share adjusted printed, error
+   still < 0.05), and generate_equirect at 5 m of step 4's sphere tree
+   against the true equirect (mean color error < 0.03 over covered
+   pixels); (d) conversions: camera 0's level 0 to a point cloud and back
+   into cameras 0 and 1, all cameras to equirects and the truth equirect
+   back, an OBJ of the truth equirect's disparity; (e) rig_analyzer's
+   coverage at 5 m and view_thresholds on cameras 0 and 1; (f) the viewer
+   server over step 10's publish: /scene.json, a mesh equal to the port's
+   buffer of the fused entries, a color that decodes to the fused RGBA, and
+   no device memory allocated. Each phase prints its wall time and peak
+   device memory with the card's name and power limit.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1128,25 +1150,385 @@ def run_shoot(tmp: str, rig, gt0, dev):
                 shoot_level0_covered_rel_rmse=rmse, shoot_export_covered_share=export_cov)
 
 
-def write_project(root: str, dev, widths=WIDTHS):
-    """The 16-camera sphere scene rendered at every pyramid width, as a
-    project tree (color_levels/level_N/<cam>/000000.png + rig). Returns the
-    level-0 ground-truth disparity (N, H, W) numpy."""
+# step 13's bars: the repo's level-0 bar (steps 5, 9) and, for
+# render_tools generate_equirect at the sphere's radius, the mean color error
+# over the covered pixels that tests/test_torch_inspect_cli.py holds the CPU
+# to; the JAX bench's readings for its occluder room (BENCH_r05.json tail,
+# make_test_rig at ring 0.3, seed 11) printed beside the port's as a
+# reference, not a bar
+LEVEL0_BAR = 0.05
+EQUIRECT_COLOR_BAR = 0.03
+JAX_OCCLUDER_REFERENCE = "covered rel RMSE 0.0258 over 99.4%, MSSIM 99.80"
+FTHETA_RESOLUTION = (3360, 2160)  # the production rig's 14:9 sensors
+
+
+def _phase_start():
+    import torch
+
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wc.reset_launch_counts()
+    return time.time()
+
+
+def _phase_end(name: str, t: float, smi: str):
+    """Wall time of the phase begun at ``t``, printed with its peak device
+    memory; returns (seconds, the kernel launches counted since the start)."""
+    import torch
+
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    log(f"{name}: {seconds:.2f} s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    return seconds, dict(wc.LAUNCHES)
+
+
+def _level_dir(out_root: str, cam_id: str) -> str:
+    from facebook360_dep_tpu_torch.core import imagetypes
+
+    return os.path.dirname(os.path.dirname(
+        imagetypes.gen_filename(out_root, "disparity_levels", 0, cam_id, "000000", "pfm")))
+
+
+def _read_maps(directory: str, ids):
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.core import io
+
+    return np.stack([io.read_disparity(os.path.join(directory, c, "000000.pfm")) for c in ids])
+
+
+def level0_error_in(maps, truth, mask, name: str):
+    """Median relative error of finite interior pixels inside ``mask``, the
+    finite share of ``mask`` and the covered relative RMSE; raises above
+    LEVEL0_BAR."""
+    import numpy as np
+
+    inside = np.where(mask, maps, np.nan)
+    med, _ = relative_error(inside, truth)
+    ok = np.isfinite(inside)
+    coverage = float(ok.sum() / max(mask.sum(), 1))
+    rmse = float(np.sqrt(np.mean((inside[ok] - truth[ok]) ** 2)) / np.mean(truth[ok]))
+    log(f"  {name}: median relative disparity error {med:.5f} (bar {LEVEL0_BAR}), coverage {coverage:.4f}, "
+        f"covered relative RMSE {rmse:.5f}")
+    if not np.isfinite(med) or med >= LEVEL0_BAR:
+        raise AssertionError(f"{name}: level-0 median relative error {med}")
+    return med, coverage, rmse
+
+
+def run_occluder_room(tmp: str, dev, smi: str):
+    """Step 13 (a): rig_simulator's occluder room (its built-in 16-camera
+    ring at 2048x1536, ten 2/3-step levels, the 2048x1024 truth equirect),
+    derp_cli and compute_rephotography_errors on it. Returns (root, output
+    root, rig, truth, metrics, launches by phase)."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.cli import rig_simulator
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.render import raytrace
+
+    root = os.path.join(tmp, "occluders")
+    out_root = os.path.join(root, "out")
+    t = _phase_start()
+    rig_simulator.main(["--dest", root, "--scene", "occluders", "--num_occluders", "4", "--resolution", str(WIDTHS[0]),
+                        "--num_cameras", str(NUM_CAMERAS), "--levels", str(len(WIDTHS)), "--eqr_width", str(WIDTHS[0])],
+                       device=dev)
+    sim_s, _ = _phase_end("rig_simulator --scene occluders (step 13a)", t, smi)
+    rig = cam.load_rig(os.path.join(root, "rigs/rig_calibrated.json"))
+    truth = _read_maps(os.path.join(root, "truth"), rig.ids)
+    if truth.shape != (NUM_CAMERAS, height(WIDTHS[0]), WIDTHS[0]) or not np.isfinite(truth).all():
+        raise AssertionError(f"occluder truth {truth.shape}, finite {np.isfinite(truth).all()}")
+    log(f"  truth disparity {truth.min():.4f}..{truth.max():.4f} (the walls >= 1/6.7, occluders nearer)")
+    # the simulator's two raytraces alone: frame 0's room (seed 7), by brute
+    # force into the rig and by the BVH into the equirect
+    mesh = raytrace.box_room_with_occluders(seed=7, num_occluders=4)
+    t = _phase_start()
+    _, disp = raytrace.render_mesh_scene(rig, (WIDTHS[0], height(WIDTHS[0])), mesh, device=dev)
+    render_s, _ = _phase_end(f"  raytrace.render_mesh_scene, {NUM_CAMERAS} cameras by brute force", t, smi)
+    t = _phase_start()
+    _, edisp = raytrace.ground_truth_equirect_mesh(mesh, WIDTHS[0], WIDTHS[0] // 2, device=dev)
+    eqr_s, _ = _phase_end(f"  raytrace.ground_truth_equirect_mesh, {WIDTHS[0]}x{WIDTHS[0] // 2} by the BVH", t, smi)
+    same = np.array_equal(disp.cpu().numpy(), truth)
+    log(f"  the render equals the simulator's truth: {same}; equirect finite {bool(edisp.isfinite().all())}")
+    if not same or not bool(edisp.isfinite().all()):
+        raise AssertionError("the occluder room's raytrace differs from the simulator's truth, or leaks")
+
+    solve_s, est, launches, _ = run_solve(root, out_root, "", dev)
+    missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the occluder solve: {missing}")
+    log(f"  level sizes {sorted(est.level_sizes.values(), reverse=True)}")
+    maps = _read_maps(_level_dir(out_root, rig.ids[0]), rig.ids)
+    med, coverage, rmse = level0_error_in(maps, truth, np.ones(truth.shape, bool), "occluder room level 0")
+    log(f"  the JAX bench's occluder room, for reference (not a bar): {JAX_OCCLUDER_REFERENCE}")
+    rephoto, k4 = run_rephotography(root, out_root, "", dev)
+    metrics = dict(occ_simulator_s=sim_s, occ_raytrace_s=render_s, occ_raytrace_eqr_s=eqr_s, occ_derp_cli_s=solve_s, occ_level0_median_rel_err=med,
+                   occ_level0_coverage=coverage, occ_level0_covered_rel_rmse=rmse,
+                   **{"occ_" + k: v for k, v in rephoto.items()})
+    return root, out_root, rig, truth, metrics, dict(occluder_solve=launches, occluder_rephotography=k4)
+
+
+def run_ftheta(tmp: str, dev, smi: str):
+    """Step 13 (b): the production FTHETA shape (15 distorted fisheyes at
+    3360x2160 on a 0.33 m ring and a top camera), the sphere rendered at
+    2048x1317 and nine smaller widths, and derp_cli; the level-0 error is
+    taken inside each image circle."""
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.depth import pipeline
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    rig = synthetic.make_ftheta_ring_rig(15, ring_radius=0.33, resolution=FTHETA_RESOLUTION,
+                                         distortion=synthetic.PRODUCTION_FTHETA_DISTORTION)
+    sizes = [(w, int(round(w * FTHETA_RESOLUTION[1] / FTHETA_RESOLUTION[0]))) for w in WIDTHS]
+    root = os.path.join(tmp, "ftheta")
+    out_root = os.path.join(root, "out")
+    t = _phase_start()
+    _, truth = write_project(root, dev, rig=rig, sizes=sizes)
+    render_s, _ = _phase_end(f"FTHETA sphere scene rendered and written at {sizes} (step 13b)", t, smi)
+    solve_s, _, launches, _ = run_solve(root, out_root, "", dev)
+    missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the FTHETA solve: {missing}")
+    circles = pipeline.generate_fov_masks(cam.normalize_rig(rig), sizes[0][::-1], "cpu").numpy()
+    maps = _read_maps(_level_dir(out_root, rig.ids[0]), rig.ids)
+    med, coverage, rmse = level0_error_in(maps, truth, circles, "FTHETA level 0 inside the image circles")
+    return dict(ftheta_render_s=render_s, ftheta_derp_cli_s=solve_s, ftheta_level0_median_rel_err=med,
+                ftheta_level0_circle_coverage=coverage, ftheta_level0_covered_rel_rmse=rmse), launches
+
+
+def run_render_tools(sphere_root: str, occ_root: str, occ_out: str, rig, truth, dev, smi: str):
+    """Step 13 (c): render_tools geometric_consistency on the occluder
+    room's level-0 maps (two passes of the mismatch stage: K1), and
+    generate_equirect of the sphere tree at the sphere's radius against the
+    true equirect."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.cli import render_tools
+    from facebook360_dep_tpu_torch.core import io
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    gc_dir = os.path.join(occ_root, "geometric_consistency")
+    t = _phase_start()
+    shares = render_tools.main(["geometric_consistency", "--rig", os.path.join(occ_root, "rigs/rig_calibrated.json"),
+                                "--color", os.path.join(occ_root, "video/color_levels/level_0"),
+                                "--disparity", _level_dir(occ_out, rig.ids[0]), "--output", gc_dir,
+                                "--iterations", "2"], device=dev)["000000"]
+    gc_s, launches = _phase_end("render_tools geometric_consistency (step 13c)", t, smi)
+    log(f"  pixels adjusted by each pass: {[f'{100 * v:.3f}%' for v in shares]}; kernel launches {launches}")
+    if launches["project_sample"] < 1:
+        raise AssertionError("K1 never launched by geometric_consistency")
+    med, _, _ = level0_error_in(_read_maps(gc_dir, rig.ids), truth, np.ones(truth.shape, bool),
+                                "occluder room level 0 after geometric_consistency")
+
+    eqr_dir = os.path.join(sphere_root, "generate_equirect")
+    t = _phase_start()
+    render_tools.main(["generate_equirect", "--rig", os.path.join(sphere_root, "rigs/rig_calibrated.json"),
+                       "--color", os.path.join(sphere_root, "video/color_levels/level_0"), "--output", eqr_dir,
+                       "--num_depths", "1", "--min_depth", "5", "--max_depth", "5"], device=dev)
+    eqr_s, _ = _phase_end("render_tools generate_equirect at 5 m, sphere tree (step 13c)", t, smi)
+    got = io.read_color(os.path.join(eqr_dir, "eqr_depth_5.00.png"))
+    want, _ = synthetic.ground_truth_equirect(None, got.shape[1], got.shape[0], "sphere", 5.0, seed=7)
+    covered = got.sum(axis=-1) > 0
+    err = float(np.abs(got - want.numpy())[covered].mean())
+    log(f"  generate_equirect {got.shape}: covered share {covered.mean():.4f}, mean color error against the "
+        f"true equirect {err:.5f} (bar {EQUIRECT_COLOR_BAR})")
+    if not covered.mean() > 0.1 or not err < EQUIRECT_COLOR_BAR:
+        raise AssertionError(f"generate_equirect: covered {covered.mean()}, error {err}")
+    return dict(gc_s=gc_s, gc_adjusted_shares=shares, gc_level0_median_rel_err=med, gc_k1_launches=launches,
+                generate_equirect_s=eqr_s, generate_equirect_color_err=err,
+                generate_equirect_covered=float(covered.mean())), launches["project_sample"]
+
+
+def run_conversions(occ_root: str, occ_out: str, rig, dev, smi: str):
+    """Step 13 (d): conversions on the occluder room: camera 0's level-0
+    map to a point cloud and back into cameras 0 and 1 at 2048x1536; all
+    16 cameras to equirects at 10 m and the truth equirect back into them;
+    an OBJ mesh of the truth equirect's disparity."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.cli import conversions
+
+    rig_path = os.path.join(occ_root, "rigs/rig_calibrated.json")
+    level0 = _level_dir(occ_out, rig.ids[0])
+    conv = os.path.join(occ_root, "conversions")
+    cloud = os.path.join(conv, "cam0.xyz")
+    seconds = {}
+    runs = [
+        ("export_point_cloud", ["--rig", rig_path, "--disparity", level0, "--output", cloud, "--cameras", "cam0"]),
+        ("import_point_cloud", ["--rig", rig_path, "--point_cloud", cloud, "--output", os.path.join(conv, "imported"),
+                                "--cameras", "cam0,cam1", "--width", str(WIDTHS[0])]),
+        ("project_cameras_to_equirects", ["--rig", rig_path, "--color", os.path.join(occ_root, "video/color_levels/level_0"),
+                                          "--output", os.path.join(conv, "eqr")]),
+        ("project_equirects_to_cameras", ["--rig", rig_path, "--eqr", os.path.join(occ_root, "truth_eqr/000000_color.png"),
+                                          "--output", os.path.join(conv, "cams")]),
+        ("create_obj_from_disparity_equirect", ["--disparity", os.path.join(occ_root, "truth_eqr/000000_disparity.pfm"),
+                                                "--output", os.path.join(conv, "truth_eqr.obj")]),
+    ]
+    for tool, argv in runs:
+        t = _phase_start()
+        conversions.main([tool] + argv, device=dev)
+        seconds[tool], _ = _phase_end(f"conversions {tool} (step 13d)", t, smi)
+    with open(cloud) as f:
+        points = sum(1 for _ in f)
+    solved = _read_maps(level0, ("cam0", "cam1"))
+    back = _read_maps(os.path.join(conv, "imported"), ("cam0", "cam1"))
+    resplat = {}
+    for i, cam_id in enumerate(("cam0", "cam1")):
+        ok = np.isfinite(back[i]) & np.isfinite(solved[i])
+        resplat[cam_id] = (float(np.median(np.abs(back[i][ok] - solved[i][ok]) / solved[i][ok])), float(ok.mean()))
+    log(f"  {points} points of cam0; re-splatted against the solved maps (median relative difference, share of "
+        f"pixels): {resplat}")
+    if not points > 0.3 * WIDTHS[0] * height(WIDTHS[0]) or not resplat["cam0"][0] < 1e-4 or not resplat["cam0"][1] > 0.5:
+        raise AssertionError(f"point cloud round trip: {points} points, {resplat}")
+    with open(os.path.join(conv, "truth_eqr.obj")) as f:
+        kinds = [line[:2] for line in f]
+    vertices, faces = kinds.count("v "), kinds.count("f ")
+    log(f"  truth equirect OBJ: {vertices} vertices, {faces} faces")
+    if not 0 < faces <= 200000:
+        raise AssertionError(f"OBJ faces {faces}")
+    for sub in ("eqr", "cams"):
+        names = sorted(os.listdir(os.path.join(conv, sub)))
+        if names != sorted(rig.ids):
+            raise AssertionError(f"conversions {sub}: {names}")
+    return dict(conversions_s=seconds, point_cloud_points=points, point_cloud_resplat=resplat,
+                obj_vertices=vertices, obj_faces=faces)
+
+
+def run_inspection(occ_root: str, rig, dev, smi: str):
+    """Step 13 (e): rig_analyzer's coverage of the occluder rig at 5 m and
+    view_thresholds on its cameras 0 and 1."""
+    from facebook360_dep_tpu_torch.cli import rig_analyzer, view_thresholds
+
+    rig_path = os.path.join(occ_root, "rigs/rig_calibrated.json")
+    t = _phase_start()
+    rig_analyzer.main(["--rig", rig_path, "--output", os.path.join(occ_root, "analysis"), "--depths", "5",
+                       "--eqr_width", str(WIDTHS[0]), "--eqr_height", str(WIDTHS[0] // 2)], device=dev)
+    cov = rig_analyzer.coverage_equirect(rig, WIDTHS[0], WIDTHS[0] // 2, 5.0, dev)
+    analyzer_s, _ = _phase_end("rig_analyzer (step 13e)", t, smi)
+    seen2 = float((cov >= 2).mean())
+    log(f"  coverage at 5 m: seen by >= 2 cameras {100 * seen2:.2f}%, most cameras {int(cov.max())}")
+    if not 0 < seen2 <= 1:
+        raise AssertionError(f"rig_analyzer coverage {seen2}")
+    img = [os.path.join(occ_root, "video/color_levels/level_0", c, "000000.png") for c in ("cam0", "cam1")]
+    seconds = {}
+    for tool, argv in (("color_variance", ["--fullsize_image", img[0]]),
+                       ("foreground_masks", ["--fullsize_bg_image", img[0], "--fullsize_fg_image", img[1]])):
+        t = _phase_start()
+        view_thresholds.main([tool] + argv + ["--width", str(WIDTHS[0]),
+                                              "--output_dir", os.path.join(occ_root, "thresholds", tool)], device=dev)
+        seconds[tool], _ = _phase_end(f"view_thresholds {tool} (step 13e)", t, smi)
+    with open(os.path.join(occ_root, "thresholds/foreground_masks/mask_sweep.json")) as f:
+        masks = json.load(f)
+    log(f"  {len(masks)} masks, foreground share {min(m['foreground_frac'] for m in masks):.4f}.."
+        f"{max(m['foreground_frac'] for m in masks):.4f}")
+    return dict(rig_analyzer_s=analyzer_s, coverage_5m_seen_by_2=seen2, view_thresholds_s=seconds)
+
+
+def run_viewer(sphere_root: str, smi: str):
+    """Step 13 (f): the viewer server over step 10's publish: /scene.json,
+    one mesh and one color, held against the fused entries read directly;
+    the server must not touch the card."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from facebook360_dep_tpu_torch.core import camera as cam, png
+    from facebook360_dep_tpu_torch.stream import fusion, native
+    from facebook360_dep_tpu_torch.viewer import server
+
+    rig_path = os.path.join(sphere_root, "rigs/rig_calibrated.json")
+    fused_dir = os.path.join(sphere_root, "publish", "fused")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.time()
+    httpd = server.serve(rig_path, fused_dir)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        scene = json.loads(urllib.request.urlopen(url + "/scene.json", timeout=60).read())
+        frame, cam_id = scene["frames"][0], scene["cameras"][0]["id"]
+        mesh = urllib.request.urlopen(f"{url}/mesh/{frame}/{cam_id}.bin", timeout=60).read()
+        color = png.decode(urllib.request.urlopen(f"{url}/color/{frame}/{cam_id}.png", timeout=60).read())
+        page = urllib.request.urlopen(url + "/", timeout=60).read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    seconds = time.time() - t
+    after = torch.cuda.memory_allocated()
+    with open(os.path.join(fused_dir, "fused.json")) as f:
+        catalog = json.load(f)
+    entry = catalog["frames"][frame][cam_id]
+    rig = cam.load_rig(rig_path)
+    want_mesh = server.mesh_buffer(rig.camera(rig.find(cam_id)), fusion.read_fused_entry(fused_dir, catalog, frame, cam_id, ".vtx"),
+                                   fusion.read_fused_entry(fused_dir, catalog, frame, cam_id, ".idx"))
+    w, h = entry["color_wh"]
+    rgba = native.decompress_bc7(np.frombuffer(fusion.read_fused_entry(fused_dir, catalog, frame, cam_id, ".bc7"),
+                                               np.uint8), w, h)
+    log(f"viewer (step 13f): {seconds:.2f} s for /scene.json ({len(scene['cameras'])} cameras, "
+        f"{len(scene['frames'])} frames), {cam_id}'s mesh ({len(mesh)} bytes), color {color.shape}, page "
+        f"({len(page)} bytes); device memory {before} -> {after} bytes; {smi}")
+    if mesh != want_mesh:
+        raise AssertionError("viewer mesh buffer differs from the fused entry's")
+    if not np.array_equal(color, rgba[..., :3]):
+        raise AssertionError("viewer color differs from the fused entry's RGBA")
+    if after != before or len(scene["cameras"]) != NUM_CAMERAS:
+        raise AssertionError(f"viewer: device memory {before} -> {after}, {len(scene['cameras'])} cameras")
+    return dict(viewer_s=seconds, viewer_mesh_bytes=len(mesh))
+
+
+def run_step13(tmp: str, sphere_root: str, dev, smi: str):
+    """Step 13: the fixture generators and the inspection tools and viewer
+    on the card. Returns (metrics, launches by phase)."""
+    metrics, phases = {}, {}
+    occ_root, occ_out, rig, truth, m, p = run_occluder_room(tmp, dev, smi)
+    metrics.update(m)
+    phases.update(p)
+    m, phases["ftheta_solve"] = run_ftheta(tmp, dev, smi)
+    metrics.update(m)
+    m, phases["geometric_consistency"] = run_render_tools(sphere_root, occ_root, occ_out, rig, truth, dev, smi)
+    metrics.update(m)
+    metrics.update(run_conversions(occ_root, occ_out, rig, dev, smi))
+    metrics.update(run_inspection(occ_root, rig, dev, smi))
+    metrics.update(run_viewer(sphere_root, smi))
+    return metrics, phases
+
+
+def write_project(root: str, dev, widths=WIDTHS, rig=None, sizes=None):
+    """The sphere scene rendered at every pyramid size into every camera of
+    ``rig`` (default: the 16-camera ring at the widths ``widths``, heights
+    3/4), as a project tree (color_levels/level_N/<cam>/000000.png + rig),
+    the PNG16 writes on a thread pool. Returns (rig, the level-0
+    ground-truth disparity (N, H, W) numpy)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from facebook360_dep_tpu_torch.core import camera as cam
     from facebook360_dep_tpu_torch.core import imagetypes, io
     from facebook360_dep_tpu_torch.render import synthetic
 
-    rig = synthetic.make_test_rig(NUM_CAMERAS, (widths[0], height(widths[0])), ring_radius=0.3)
+    if rig is None:
+        rig = synthetic.make_test_rig(NUM_CAMERAS, (widths[0], height(widths[0])), ring_radius=0.3)
+    sizes = sizes or [(w, height(w)) for w in widths]
     gt0 = None
-    for level, w in enumerate(widths):
-        colors, gt = synthetic.render_sphere_scene(rig, (w, height(w)), radius=5.0, device=dev)
-        colors = colors.cpu().numpy()
-        if level == 0:
-            gt0 = gt.cpu().numpy()
-        for i, cam_id in enumerate(rig.ids):
-            d = imagetypes.image_dir(root, "color_levels", level, cam_id)
-            os.makedirs(d, exist_ok=True)
-            io.write_color(os.path.join(d, "000000.png"), colors[i], bit_depth=16)
+
+    def write(level, cam_id, color):
+        d = imagetypes.image_dir(root, "color_levels", level, cam_id)
+        os.makedirs(d, exist_ok=True)
+        io.write_color(os.path.join(d, "000000.png"), color, bit_depth=16)
+
+    with ThreadPoolExecutor(max_workers=min(len(rig.ids), os.cpu_count() or 1)) as pool:
+        for level, size in enumerate(sizes):
+            colors, gt = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)
+            colors = colors.cpu().numpy()
+            if level == 0:
+                gt0 = gt.cpu().numpy()
+            list(pool.map(lambda a: write(level, *a), [(c, colors[i]) for i, c in enumerate(rig.ids)]))
     os.makedirs(os.path.join(root, "rigs"), exist_ok=True)
     cam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
     return rig, gt0
@@ -1211,20 +1593,10 @@ def check_level0(out_root: str, rig, gt):
     as tests/test_derp_cli.py:61-65 checks it; coverage and covered RMSE."""
     import numpy as np
 
-    from facebook360_dep_tpu_torch.core import imagetypes, io
-
-    disp = np.stack([io.read_disparity(imagetypes.gen_filename(out_root, "disparity_levels", 0, cam_id,
-                                                                "000000", "pfm")) for cam_id in rig.ids])
+    disp = _read_maps(_level_dir(out_root, rig.ids[0]), rig.ids)
     if disp.shape != gt.shape:
         raise AssertionError(f"level-0 maps {disp.shape}, expected {gt.shape}")
-    med, coverage = relative_error(disp, gt)
-    ok = np.isfinite(disp)
-    rmse = float(np.sqrt(np.mean((disp[ok] - gt[ok]) ** 2)) / np.mean(gt[ok]))
-    log(f"level 0: median relative disparity error {med:.5f} (bar 0.05), "
-        f"coverage {coverage:.4f}, covered relative RMSE {rmse:.5f}")
-    if not np.isfinite(med) or med >= 0.05:
-        raise AssertionError(f"level-0 median relative error {med}")
-    return med, coverage, rmse
+    return level0_error_in(disp, gt, np.ones(gt.shape, bool), "level 0")
 
 
 # The foreground chain's scene: the sphere of radius 5 m as the static
@@ -1607,10 +1979,14 @@ def main(argv=None) -> int:
         shoot = run_shoot(os.path.join(root, "step12"), rig, gt0, dev)
         log(f"shoot from RAW through dep (step 12): {time.time() - t:.1f} s; {smi}")
 
+        t = time.time()
+        step13, step13_launches = run_step13(os.path.join(root, "step13"), root, dev, smi)
+        log(f"fixture generators, inspection tools and viewer (step 13): {time.time() - t:.1f} s; {smi}")
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
                     "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
-                    **calibration, **shoot}))
+                    **calibration, **shoot, **step13}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
@@ -1621,9 +1997,15 @@ def main(argv=None) -> int:
         entry = dict(name=name, route="cuda", source=f"{CSRC}/{src}",
                      replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name],
                      chain_launches=chain_counts)
-        if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback
+        if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback, step 13
             entry["phase_launches"] = dict(rephotography=launches[name], eqrcolor=render["eqrcolor_k4_launches"],
-                                           tbstereo=render["tbstereo_k4_launches"], playback=k4_playback)
+                                           tbstereo=render["tbstereo_k4_launches"], playback=k4_playback,
+                                           occluder_rephotography=step13_launches["occluder_rephotography"])
+        else:  # K1-K3 in step 13's solves, and K1 in geometric_consistency
+            entry["phase_launches"] = {phase: step13_launches[phase][name]
+                                       for phase in ("occluder_solve", "ftheta_solve")}
+            if name == "project_sample":
+                entry["phase_launches"]["geometric_consistency"] = step13_launches["geometric_consistency"]
         kernels.append(entry)
     log(smi)
     log(json.dumps({"kernels": kernels}))

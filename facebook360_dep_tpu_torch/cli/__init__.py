@@ -9,7 +9,10 @@ calibration (main, main_match_corners, main_geometric), align_point_cloud
 and align_colors, with rig_aligner and rig_compare on the host (rig
 calibration); raw_to_rgb and correct_vignetting (the ISP); and the project
 driver dep over render_pipeline and the farm, with verify_data and
-log_reader on the host.
+log_reader on the host; the fixture generator rig_simulator; the
+inspection tools rig_analyzer, render_tools, conversions and
+view_thresholds; and gl_viewer, which serves the 6DoF viewer from the
+host and takes no device.
 
 Importing the package sets a CLI process up as the JAX package's does
 (util/SystemUtil.h:36-41 initDep): faulthandler for the fatal signals, a

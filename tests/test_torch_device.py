@@ -3,10 +3,10 @@ device: without a visible card they raise, and never carry on silently on
 the CPU. The tests that compare each CLI with the JAX package's pass
 ``device="cpu"`` (test_torch_derp_cli.py, test_torch_fg_depth.py,
 test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py,
-test_torch_calib_cli.py, test_torch_isp.py). A CLI run with no ``device``
-takes it from ``DEP_TORCH_DEVICE`` (unset: the card; ``cpu``: the CPU; any
-other value raises), which is how the farm's subprocess stages are steered
-(test_torch_dep_driver.py)."""
+test_torch_calib_cli.py, test_torch_isp.py, test_torch_inspect_cli.py). A
+CLI run with no ``device`` takes it from ``DEP_TORCH_DEVICE`` (unset: the
+card; ``cpu``: the CPU; any other value raises), which is how the farm's
+subprocess stages are steered (test_torch_dep_driver.py)."""
 
 import importlib
 import json
@@ -43,6 +43,11 @@ ENTRY_POINTS = {
                      "--output", "o"],
     "raw_to_rgb": ["--input_image_path", "in.raw", "--output_image_path", "o.png", "--isp_config_path", "isp.json"],
     "correct_vignetting": ["--raw", "in.png", "--out", "o.png", "--vignetting_x", "1,1", "--vignetting_y", "1,1"],
+    "rig_simulator": ["--dest", "out"],
+    "rig_analyzer": ["--rig", "r.json", "--output", "o"],
+    "render_tools": ["geometric_consistency", "--rig", "r.json", "--color", "c", "--disparity", "d", "--output", "o"],
+    "conversions": ["export_point_cloud", "--rig", "r.json", "--disparity", "d", "--output", "o.xyz"],
+    "view_thresholds": ["color_variance", "--fullsize_image", "in.png", "--output_dir", "o"],
 }
 
 
@@ -104,6 +109,18 @@ def test_device_variable_steers_a_cli_and_an_argument_beats_it(no_card, monkeypa
         with pytest.raises(ValueError, match="DEP_TORCH_DEVICE"):
             importlib.import_module("facebook360_dep_tpu_torch.cli.derp_cli").main(ENTRY_POINTS["derp_cli"])
         assert cli.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["rig_simulator", "rig_analyzer", "render_tools", "conversions", "view_thresholds"])
+def test_fixture_and_inspection_clis_follow_the_variable(no_card, monkeypatch, name):
+    mod = importlib.import_module(f"facebook360_dep_tpu_torch.cli.{name}")
+    monkeypatch.setenv(cli.DEVICE_ENV, "cuda")
+    with pytest.raises(ValueError, match="DEP_TORCH_DEVICE"):
+        mod.main(ENTRY_POINTS[name])
+    if name == "rig_simulator":  # and runs on the CPU where it says so
+        monkeypatch.setenv(cli.DEVICE_ENV, "cpu")
+        mod.main(["--dest", "out", "--num_cameras", "2", "--resolution", "16", "--levels", "1"])
+        assert os.path.exists("out/truth/cam1/000000.pfm")
 
 
 def test_device_argument_beats_the_variable_in_a_cli(tmp_path, monkeypatch):

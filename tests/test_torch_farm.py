@@ -149,16 +149,16 @@ def test_worker_sigkilled_mid_chunk_is_requeued(tmp_path):
     q.publish("slowjob", {"argv": [sys.executable, "-c", f"import os, time; open(r'{pid}', 'w').write(str(os.getpid())); "
                                    f"time.sleep(120); open(r'{out}', 'w').write('x')"]})
     victim = _spawn_worker(tmp_path / "q", "victim", once=False)
-    deadline = time.time() + 30
     claimed_dir = tmp_path / "q" / "claimed"
-    while time.time() < deadline and not os.listdir(claimed_dir):
-        time.sleep(0.05)
-    assert os.listdir(claimed_dir), "worker never claimed the job"
-    victim.send_signal(signal.SIGKILL)
-    victim.wait(timeout=30)
+    # The worker claims first and starts the chunk's command after: kill it
+    # only once that command has written its pid, so the kill lands mid-chunk.
     deadline = time.time() + 30
     while time.time() < deadline and not (pid.exists() and pid.read_text()):
         time.sleep(0.05)
+    assert os.listdir(claimed_dir), "worker never claimed the job"
+    assert pid.exists() and pid.read_text(), "the chunk's command never started"
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=30)
     os.kill(int(pid.read_text()), signal.SIGKILL)  # the orphaned chunk command
     time.sleep(1.2)
     assert q.requeue_stale_claims(lease=1.0) == ["slowjob"]
