@@ -115,7 +115,23 @@
    server over step 10's publish: /scene.json, a mesh equal to the port's
    buffer of the fused entries, a color that decodes to the fused RGBA, and
    no device memory allocated. Each phase prints its wall time and peak
-   device memory with the card's name and power limit.
+   device memory with the card's name and power limit;
+14. runs the multi-GPU path (facebook360_dep_tpu_torch/parallel/) on the
+   one card. First the references in this process: the sphere scene's
+   ten-level pyramid (16 cameras, 2048x1536 down to 50) through
+   process_level on all 16 destinations with the mismatch stage from level
+   8 (level-0 error < 0.05), and frame 1's level 0 (the colors x 0.9 +
+   0.05). Then 4 spawned ranks joined through gloo (NCCL takes one card a
+   rank), which only load the kernels step 2 built: (a) each solves its 4
+   destinations of the pyramid on the ("cam",) mesh, with the disparity
+   all-gather before the mismatch stage at levels 8..0, and gathers the
+   level-0 maps; (b) on the 2 x 2 ("frame", "cam") mesh each solves one
+   frame's 8 destinations at level 0, its init (a)'s level-1 maps
+   upsampled. (c) one NCCL rank in this process solves level 0 on the
+   camera mesh. Every rank's maps must equal the reference's bit for bit,
+   every rank must launch K1-K3 in (a) and K1 and K3 in (b) (level 0 runs
+   no K2); each rank prints its wall time, peak memory, launches and bytes
+   gathered, with the backend and the card's name and power limit.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -136,6 +152,11 @@ levels L..0 when L >= 0) and prints one JSON line ``{"solve": ...}`` (wall
 time, level times, launches, peak memory; with ``--reference``, OUT's
 level-0 maps against OUT0's): two checkouts, each with this script,
 compared on one tree in one call.
+
+    python3 chip_smoke.py --step14
+
+builds the kernels and runs step 14 alone, printed as one JSON object
+``{"step14": ..., "phase_launches": ...}`` (no ``ok`` line).
 
     python3 chip_smoke.py --kernels-only
 
@@ -1843,6 +1864,281 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
     return metrics, launches
 
 
+# step 14: the multi-GPU path (parallel/) on the one card: 4 gloo ranks,
+# then one NCCL rank; every result held to the single-process solve
+STEP14_RANKS = 4
+STEP14_FRAMES = 2
+STEP14_MISMATCHES_START_LEVEL = 8
+STEP14_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sphere_pyramid(rig, widths, dev, solve, keep=(0, 1)):
+    """Step 14's pyramid loop, DepthEstimator's (depth/pipeline.py) without
+    the files: from the coarsest level down, each level's context of the
+    sphere colors rendered at that width and the upsampled init of the maps
+    ``solve(ctx, cfg, init)`` returned one level up (its own maps: a rank's
+    block, or all of them), the mismatch stage from level
+    STEP14_MISMATCHES_START_LEVEL. Returns ({level: its result} for
+    ``keep``, the finest level's context)."""
+    import torch
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.depth import pipeline, solver
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    nrig = cam.normalize_rig(rig)
+    kept, maps, ctx = {}, None, None
+    for level in reversed(range(len(widths))):
+        size = (widths[level], height(widths[level]))
+        ctx = None  # freed before the next level's is built
+        colors, _ = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)
+        ctx = solver.make_level_context(nrig, nrig, colors, pipeline.generate_fov_masks(nrig, size[::-1], dev),
+                                        full_height=height(widths[0]))
+        init = None if maps is None else torch.stack([pipeline.upsample_disparity_init(m, size) for m in maps])
+        out = solve(ctx, step14_config(level, len(widths)), init)
+        maps = out["disparity"]
+        if level in keep:
+            kept[level] = out
+    return kept, ctx
+
+
+def step14_config(level: int, num_levels: int):
+    from facebook360_dep_tpu_torch.depth import solver
+
+    return solver.SolverConfig(min_depth=1.0, max_depth=100.0, mismatches_start_level=STEP14_MISMATCHES_START_LEVEL,
+                               level=level, num_levels=num_levels)
+
+
+def map_digests(out, index=slice(None)) -> dict:
+    """SHA-256 of each result map's bytes (``index`` of its leading axis):
+    equal digests are equal bits, NaNs included."""
+    import hashlib
+
+    from facebook360_dep_tpu_torch.parallel.sharding import MAPS
+
+    return {k: hashlib.sha256(out[k][index].contiguous().cpu().numpy().tobytes()).hexdigest() for k in MAPS}
+
+
+@contextlib.contextmanager
+def counting_gathers():
+    """Counts the bytes every ``sharding.all_gather`` call returns (each
+    rank's copy of what the group gathered) into the yielded list."""
+    from facebook360_dep_tpu_torch.parallel import sharding
+
+    counted, gather = [0], sharding.all_gather
+
+    def counting(tensor, mesh, axis):
+        out = gather(tensor, mesh, axis)
+        counted[0] += out.numel() * out.element_size()
+        return out
+
+    sharding.all_gather = counting
+    try:
+        yield counted
+    finally:
+        sharding.all_gather = gather
+
+
+def _rank_phase(dev, fn):
+    """(seconds, peak device GiB, K1-K4 launches, gathered bytes, result) of ``fn()``."""
+    import torch
+
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wc.reset_launch_counts()
+    with counting_gathers() as gathered:
+        t = time.time()
+        result = fn()
+        torch.cuda.synchronize(dev)
+        seconds = time.time() - t
+    return dict(seconds=seconds, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, launches=dict(wc.LAUNCHES),
+                gathered_bytes=gathered[0]), result
+
+
+def step14_rank(rank: int, coordinator: str, rig, widths, report_path: str) -> None:
+    """One of step 14's ranks, a spawned process on the card: joins the
+    gloo group, then (a) the sphere pyramid with its block of destinations
+    on the ("cam",) mesh, whose level-0 maps it gathers, and (b) one frame
+    of two with its block of destinations on the 2 x 2 ("frame", "cam")
+    mesh, its init (a)'s level-1 maps upsampled. Writes its report (times,
+    memory, launches, gathered bytes, digests of its maps) as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from facebook360_dep_tpu_torch.depth import pipeline
+    from facebook360_dep_tpu_torch.parallel import multihost, sharding
+
+    # the ranks share this host: gloo's pairs connect over the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dev = multihost.local_device()
+    if dev.type != "cuda":
+        raise RuntimeError(f"rank {rank} is on {dev}: step 14's ranks run on the card")
+    torch.cuda.set_device(dev)
+    multihost.maybe_initialize(coordinator_address=coordinator, num_processes=STEP14_RANKS, process_id=rank,
+                               backend="gloo", device=dev)
+    report = dict(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(), device=str(dev))
+    n = len(rig.ids)
+
+    mesh = sharding.camera_mesh()
+    report["a"], (kept, ctx0) = _rank_phase(dev, lambda: sphere_pyramid(
+        rig, widths, dev, lambda ctx, cfg, init: sharding.process_level_sharded(ctx, cfg, mesh, init)))
+    report["a"]["destinations"] = list(kept[0]["destinations"])
+    report["a"]["digests"] = map_digests(sharding.gather_result(kept[0], mesh))
+    level1 = sharding.all_gather(kept[1]["disparity"], mesh, "cam")  # (a)'s level-1 maps, destination order
+    del kept
+
+    mesh2 = sharding.frame_camera_mesh(STEP14_FRAMES)
+    frames = torch.stack([ctx0.src_imgs, ctx0.src_imgs * 0.9 + 0.05])
+    mine, dsts = sharding.block(STEP14_FRAMES, mesh2, "frame"), sharding.block(n, mesh2, "cam")
+    size = (widths[0], height(widths[0]))
+    init = torch.stack([pipeline.upsample_disparity_init(level1[d], size) for d in dsts])[None]
+    report["b"], out = _rank_phase(dev, lambda: sharding.process_frames_sharded(
+        ctx0, frames, step14_config(0, len(widths)), mesh2, init_disparity=init))
+    report["b"].update(frames=list(out["frames"]), destinations=list(out["destinations"]),
+                       digests=map_digests(out, 0))
+    multihost.shutdown()
+    with open(report_path, "w") as f:
+        json.dump(report, f)
+
+
+def run_ranks(target, args_of, n: int, timeout: float):
+    """``target(rank, *args_of(rank))`` in ``n`` spawned processes (CUDA does
+    not survive a fork); any rank that fails, or a run past ``timeout`` s,
+    kills them all and raises."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    procs = [mp.Process(target=target, args=(r, *args_of(r))) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if failed or time.time() > deadline:
+                raise AssertionError(f"step 14 ranks {failed or 'all'} failed or ran past {timeout} s "
+                                     f"(exit codes {[p.exitcode for p in procs]})")
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"step 14 ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def run_step14(tmp: str, dev, smi: str, widths=WIDTHS):
+    """Step 14: the multi-GPU path on the one card. The single-process
+    references first: the sphere pyramid through process_level on all 16
+    destinations, and frame 1's level 0. Then (a) and (b) in 4 spawned gloo
+    ranks (step14_rank), whose maps must equal the references bit for bit,
+    and (c) one NCCL rank in this process: the level-0 solve on the camera
+    mesh. Returns (metrics, launches by phase)."""
+    import torch
+    import torch.distributed as dist
+
+    from facebook360_dep_tpu_torch.depth import pipeline, solver
+    from facebook360_dep_tpu_torch.parallel import multihost, sharding
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    rig = synthetic.make_test_rig(NUM_CAMERAS, (widths[0], height(widths[0])), ring_radius=0.3)
+    size = (widths[0], height(widths[0]))
+    cfg0 = step14_config(0, len(widths))
+    t = _phase_start()
+    ref, ctx0 = sphere_pyramid(rig, widths, dev, lambda ctx, cfg, init: solver.process_level(ctx, cfg, init))
+    single_s, _ = _phase_end(f"step 14 reference: the pyramid in one process, process_level on all {NUM_CAMERAS} "
+                             f"destinations, mismatch stage from level {STEP14_MISMATCHES_START_LEVEL}", t, smi)
+    _, gt0 = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)
+    med, _ = relative_error(ref[0]["disparity"].cpu().numpy(), gt0.cpu().numpy())
+    log(f"  level 0: median relative disparity error {med:.5f} (bar {LEVEL0_BAR})")
+    if not med < LEVEL0_BAR:
+        raise AssertionError(f"step 14 reference level 0: median relative error {med}")
+    init0 = torch.stack([pipeline.upsample_disparity_init(m, size) for m in ref[1]["disparity"]])
+    frame1 = solver.process_level(solver.with_images(ctx0, ctx0.src_imgs * 0.9 + 0.05), cfg0, init0)
+    per_rank = NUM_CAMERAS * STEP14_FRAMES // STEP14_RANKS
+    want_a = map_digests(ref[0])
+    want_b = {(f, d): map_digests(out, slice(d, d + per_rank))
+              for f, out in enumerate((ref[0], frame1)) for d in range(0, NUM_CAMERAS, per_rank)}
+    del frame1
+    torch.cuda.empty_cache()
+
+    coordinator = f"127.0.0.1:{free_port()}"
+    paths = [os.path.join(tmp, f"step14_rank{r}.json") for r in range(STEP14_RANKS)]
+    t = time.time()
+    run_ranks(step14_rank, lambda r: (coordinator, rig, widths, paths[r]), STEP14_RANKS, STEP14_TIMEOUT_S)
+    ranks_s = time.time() - t
+    reports = []
+    for path in paths:
+        with open(path) as f:
+            reports.append(json.load(f))
+    for r in reports:
+        a, b = r["a"], r["b"]
+        log(f"step 14 rank {r['rank']}/{r['world']} ({r['backend']}, {r['device']}): (a) destinations "
+            f"{a['destinations']}: {a['seconds']:.2f} s, peak {a['peak_gib']:.2f} GiB, launches {a['launches']}, "
+            f"gathered {a['gathered_bytes']} B; (b) frame {b['frames']}, destinations {b['destinations']}: "
+            f"{b['seconds']:.2f} s, peak {b['peak_gib']:.2f} GiB, launches {b['launches']}, "
+            f"gathered {b['gathered_bytes']} B; {smi}")
+        if r["backend"] != "gloo" or r["world"] != STEP14_RANKS or not r["device"].startswith("cuda"):
+            raise AssertionError(f"step 14 rank {r['rank']}: {r['backend']}, world {r['world']}, {r['device']}")
+        if a["digests"] != want_a:
+            raise AssertionError(f"step 14 (a) rank {r['rank']}: gathered level-0 maps differ from process_level's "
+                                 f"in {[k for k in want_a if a['digests'][k] != want_a[k]]}")
+        want = want_b[(b["frames"][0], b["destinations"][0])]
+        if b["digests"] != want:
+            raise AssertionError(f"step 14 (b) rank {r['rank']}: frame {b['frames']} maps differ from process_level's "
+                                 f"in {[k for k in want if b['digests'][k] != want[k]]}")
+        # level 0 runs K3 (2048x1536) and K1 (the mismatch stage) only
+        missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if a["launches"][k] <= 0]
+        missing += [k for k in ("project_sample", "cost_fused") if b["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"step 14 rank {r['rank']} never launched {missing}")
+    log(f"step 14 (a) camera mesh, (b) frame x camera mesh: {STEP14_RANKS} gloo ranks in {ranks_s:.2f} s "
+        f"(spawn to exit); every rank's maps equal the single-process solve's bit for bit; {smi}")
+
+    # (c) the production backend: one NCCL rank on the card
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    multihost.maybe_initialize(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                               device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = sharding.camera_mesh()
+        t = _phase_start()
+        with counting_gathers() as gathered:
+            full = sharding.gather_result(sharding.process_level_sharded(ctx0, cfg0, mesh, init0), mesh)
+        nccl_s, nccl_launches = _phase_end(f"step 14 (c) level 0 on the camera mesh, 1 {backend} rank", t, smi)
+        nccl_peak = torch.cuda.max_memory_allocated() / 2**30
+        nccl_equal = map_digests(full) == want_a
+    finally:
+        multihost.shutdown()
+    log(f"  gathered {gathered[0]} B; equal to process_level: {nccl_equal}; launches {nccl_launches}")
+    if backend != "nccl" or not nccl_equal or min(nccl_launches[k] for k in ("project_sample", "cost_fused")) <= 0:
+        raise AssertionError(f"step 14 (c): backend {backend}, equal {nccl_equal}, launches {nccl_launches}")
+
+    metrics = dict(
+        step14_single_pyramid_s=single_s, step14_level0_median_rel_err=med, step14_ranks_s=ranks_s,
+        step14a_rank_s=[r["a"]["seconds"] for r in reports], step14a_peak_gib=[r["a"]["peak_gib"] for r in reports],
+        step14a_gathered_bytes=[r["a"]["gathered_bytes"] for r in reports],
+        step14b_rank_s=[r["b"]["seconds"] for r in reports], step14b_peak_gib=[r["b"]["peak_gib"] for r in reports],
+        step14b_gathered_bytes=[r["b"]["gathered_bytes"] for r in reports],
+        step14c_s=nccl_s, step14c_peak_gib=nccl_peak, step14c_gathered_bytes=gathered[0],
+        step14_backends=dict(a="gloo", b="gloo", c=backend))
+    phases = {"step14a_ranks": [r["a"]["launches"] for r in reports],
+              "step14b_ranks": [r["b"]["launches"] for r in reports], "step14c": nccl_launches}
+    return metrics, phases
+
+
 @contextlib.contextmanager
 def profiled(out_dir, name):
     """torch.profiler over the block when ``out_dir`` is set; writes the
@@ -1886,6 +2182,8 @@ def main(argv=None) -> int:
                              "skips it)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="build K1-K4, run the K1-K3 checks and per-level times (step 3), print them and stop")
+    parser.add_argument("--step14", action="store_true",
+                        help="build the kernels, run the multi-GPU path (step 14) alone, print its JSON and stop")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1932,6 +2230,13 @@ def main(argv=None) -> int:
                 out_root, args.reference, cam.load_rig(os.path.join(root, "rigs/rig_calibrated.json")).ids)
         log(smi)
         log(json.dumps({"solve": result}))
+        return 0
+
+    if args.step14:  # the multi-GPU path alone: no kernels or ok line
+        with tempfile.TemporaryDirectory(prefix="fdt_step14_") as tmp:
+            step14, phases = run_step14(tmp, dev, smi)
+        log(smi)
+        log(json.dumps({"step14": step14, "phase_launches": phases}))
         return 0
 
     t = time.time()
@@ -1983,10 +2288,14 @@ def main(argv=None) -> int:
         step13, step13_launches = run_step13(os.path.join(root, "step13"), root, dev, smi)
         log(f"fixture generators, inspection tools and viewer (step 13): {time.time() - t:.1f} s; {smi}")
 
+        t = time.time()
+        step14, step14_launches = run_step14(root, dev, smi)
+        log(f"multi-GPU path (step 14): {time.time() - t:.1f} s; {smi}")
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
                     "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
-                    **calibration, **shoot, **step13}))
+                    **calibration, **shoot, **step13, **step14}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
@@ -2001,11 +2310,15 @@ def main(argv=None) -> int:
             entry["phase_launches"] = dict(rephotography=launches[name], eqrcolor=render["eqrcolor_k4_launches"],
                                            tbstereo=render["tbstereo_k4_launches"], playback=k4_playback,
                                            occluder_rephotography=step13_launches["occluder_rephotography"])
-        else:  # K1-K3 in step 13's solves, and K1 in geometric_consistency
+        else:  # K1-K3 in step 13's solves, K1 in geometric_consistency, and step 14's ranks
             entry["phase_launches"] = {phase: step13_launches[phase][name]
                                        for phase in ("occluder_solve", "ftheta_solve")}
             if name == "project_sample":
                 entry["phase_launches"]["geometric_consistency"] = step13_launches["geometric_consistency"]
+            entry["phase_launches"].update(
+                step14a_ranks=[r[name] for r in step14_launches["step14a_ranks"]],
+                step14b_ranks=[r[name] for r in step14_launches["step14b_ranks"]],
+                step14c=step14_launches["step14c"][name])
         kernels.append(entry)
     log(smi)
     log(json.dumps({"kernels": kernels}))

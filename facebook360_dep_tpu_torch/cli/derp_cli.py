@@ -1,11 +1,12 @@
 """DerpCLI equivalent: coarse-to-fine multi-view disparity estimation.
 
 Flag names mirror the reference binary (``depth_estimation/DerpCLI.cpp:40-67``)
-and the JAX package's CLI, including its three multi-host flags. Every
-option runs: the background-constrained solve (``--use_foreground_masks``
-with ``--background_disp``), the debug images, plotMatches and the
-profiler trace. Only a coordinator address raises, until the multi-GPU
-path exists.
+and the JAX package's CLI, including its three multi-host flags
+(``parallel/multihost.py``). Every option runs: the background-constrained
+solve (``--use_foreground_masks`` with ``--background_disp``), the debug
+images, plotMatches and the profiler trace. With ``--coordinator_address``
+the process first joins the process group, then runs the same solve on its
+rank's device; the solve itself does not shard, as in the JAX package.
 
     python -m facebook360_dep_tpu_torch.cli.derp_cli --input_root <root> \
         --output_root <out> [--min_depth_m 1 --max_depth_m 100 --resolution 2048]
@@ -13,6 +14,9 @@ path exists.
     python -m facebook360_dep_tpu_torch.cli.derp_cli --input_root <root> \
         --output_root <out> --use_foreground_masks true \
         --background_disp <background out>/disparity_levels --first 000000 --last 000002
+    # one of N processes of a multi-process run
+    python -m facebook360_dep_tpu_torch.cli.derp_cli ... --coordinator_address <host:port> \
+        --num_processes N --process_id i
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import argparse
 import logging
 
 from ..depth.pipeline import DepthEstimator, DepthEstimatorOptions
+from ..parallel import multihost
 from . import resolve_device
 
 
@@ -68,11 +73,7 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug_plot_match_level", type=int, default=-1)
     p.add_argument("--threads", type=int, default=-1, help="accepted for flag parity (unused)")
     p.add_argument("--profile_dir", default="", help="torch.profiler chrome-trace directory")
-    # multi-host flags (parallel/multihost.py in the JAX package)
-    p.add_argument("--coordinator_address", default="",
-                   help="host:port of process 0 for a multi-process run (not ported yet)")
-    p.add_argument("--num_processes", type=int, default=-1, help="total processes (-1 = auto)")
-    p.add_argument("--process_id", type=int, default=-1, help="this process's rank (-1 = auto)")
+    multihost.add_flags(p)
 
 
 def options_from_args(args) -> DepthEstimatorOptions:
@@ -81,15 +82,17 @@ def options_from_args(args) -> DepthEstimatorOptions:
 
 
 def main(argv=None, *, device=None) -> DepthEstimator:
-    """Parse ``argv``, run the estimator on ``device`` (None: the card), and
-    return it (its ``level_seconds`` holds the per-level wall times)."""
+    """Parse ``argv``, join the process group where a coordinator is given,
+    run the estimator on ``device`` (None: the card, in a multi-process run
+    the rank's card), and return it (its ``level_seconds`` holds the
+    per-level wall times)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     add_flags(p)
     args = p.parse_args(argv)
-    if args.coordinator_address:
-        raise NotImplementedError("--coordinator_address: the multi-GPU path is not ported yet")
-    estimator = DepthEstimator(options_from_args(args), device=resolve_device(device))
+    device = resolve_device(device)
+    multihost.maybe_initialize(args, device=device)
+    estimator = DepthEstimator(options_from_args(args), device=multihost.local_device(device))
     estimator.run()
     return estimator
 

@@ -108,19 +108,13 @@ def make_level_context(
     # invalid for every source (mask_fov discards them anyway).
     rays = cost_ops.dst_ray_dirs(dst_cams, h, w)
     rays = torch.where(dst_fov[..., None], rays, float("nan"))
-    src_rgba = warp_cuda.rgba_stack(src_imgs)
     dst2src = tuple(int(i) for i in cam.map_src_to_dst_indexes(rig_src, rig_dst))
-    src_variance = sampling.rgb_variance(src_imgs)
     return LevelContext(
         src_cams=src_cams,
         dst_cams=dst_cams,
         dst2src=dst2src,
-        src_imgs=src_imgs,
-        src_rgba=src_rgba,
+        **_image_fields(src_imgs, dst2src),
         src_params=warp_cuda.pack_camera_params(src_cams),
-        src_variance=src_variance,
-        dst_planar=warp_cuda.planar_view(src_rgba)[list(dst2src)].contiguous(),
-        dst_variance=src_variance[list(dst2src)],
         dst_fov_masks=dst_fov,
         dst_fg_masks=dst_fg_masks.to(device=dev, dtype=torch.bool),
         dst_bg_disp=dst_bg_disp.to(device=dev, dtype=torch.float32),
@@ -128,6 +122,31 @@ def make_level_context(
         var_high_thresh=_f32(var_high_thresh),
         dst_rays=rays.permute(0, 3, 1, 2).contiguous(),
     )
+
+
+def _image_fields(src_imgs: torch.Tensor, dst2src: tuple) -> dict:
+    """Every field of a level context that depends on the colors: the
+    sources' stacks and variance, and the destinations' colors and
+    variance taken from them."""
+    src_rgba = warp_cuda.rgba_stack(src_imgs)
+    src_variance = sampling.rgb_variance(src_imgs)
+    return dict(
+        src_imgs=src_imgs,
+        src_rgba=src_rgba,
+        src_variance=src_variance,
+        dst_planar=warp_cuda.planar_view(src_rgba)[list(dst2src)].contiguous(),
+        dst_variance=src_variance[list(dst2src)],
+    )
+
+
+def with_images(ctx: LevelContext, src_imgs: torch.Tensor) -> LevelContext:
+    """The context of another frame of the same rig and level: ``src_imgs``
+    (N, H, W, 3) replace every field that depends on the colors, the
+    destinations' included; cameras, masks and rays stay."""
+    src_imgs = src_imgs.to(device=ctx.src_imgs.device, dtype=torch.float32)
+    if src_imgs.shape != ctx.src_imgs.shape:
+        raise ValueError(f"frame colors {tuple(src_imgs.shape)} vs the context's {tuple(ctx.src_imgs.shape)}")
+    return ctx._replace(**_image_fields(src_imgs, ctx.dst2src))
 
 
 def select_destinations(ctx: LevelContext, dsts) -> LevelContext:
@@ -156,6 +175,19 @@ def brute_force_all(ctx: LevelContext, cfg: SolverConfig):
         cfg.has_fg_masks)
 
 
+def level_generator(cfg: SolverConfig, device) -> torch.Generator:
+    """The generator of a level's random proposals when the caller gives
+    none: seeded with the level, so every frame of a level draws alike."""
+    return torch.Generator(device=device).manual_seed(cfg.level)
+
+
+def draw_uniforms(generator: torch.Generator, d: int, p: int, h: int, w: int) -> torch.Tensor:
+    """(D, P, H, W) proposal draws in [0, 1) on ``generator``'s device: one
+    (P, H, W) draw a destination, in destination order, so destination j
+    draws the same whichever destinations a caller keeps."""
+    return torch.stack([torch.rand((p, h, w), generator=generator, device=generator.device) for _ in range(d)])
+
+
 def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, confidences,
                      uniforms=None, generator=None):
     """Per-pixel randomized refinement of every dst camera at once
@@ -164,8 +196,8 @@ def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, con
     amplitude.
 
     ``uniforms`` (D, P, H, W) in [0, 1) supplies the draws (tests feed the
-    JAX package's threefry draws); without it they come from ``generator``,
-    one (P, H, W) draw a destination in destination order.
+    JAX package's threefry draws); without it they come from ``generator``
+    (:func:`draw_uniforms`).
     """
     if cfg.num_random_proposals <= 0:
         return disparity, costs, confidences
@@ -174,8 +206,7 @@ def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, con
     if uniforms is None and generator is None:
         raise ValueError("random_proposals needs uniforms or a generator")
     if uniforms is None:
-        uniforms = torch.stack([torch.rand((cfg.num_random_proposals, h, w), generator=generator, device=dev)
-                                for _ in range(d)])
+        uniforms = draw_uniforms(generator, d, cfg.num_random_proposals, h, w)
 
     max_disp = 1.0 / cfg.min_depth
     var_high_dev = np.float32(cost_ops.RANDOM_PROP_HIGH_VAR_DEVIATION) * np.float32(ctx.var_high_thresh)
@@ -353,13 +384,17 @@ def mask_fov(ctx: LevelContext, disparity):
 
 
 def process_level(ctx: LevelContext, cfg: SolverConfig, init_disparity=None, uniforms=None,
-                  generator=None):
+                  generator=None, gather=None):
     """Full per-level pipeline (Derp.cpp:1005-1034; solver.py:474-506).
 
     ``init_disparity`` is the upsampled coarser-level result (None at the
     coarsest level). The random proposals draw ``uniforms`` when given,
-    else from ``generator``, else from a generator seeded with the level.
-    Returns a dict of (D, H, W) disparity/cost/confidence/mismatch maps.
+    else from ``generator``, else from :func:`level_generator`.
+    ``gather``, where the context holds some of the destinations (the
+    sharded solve, ``parallel/sharding.py``), maps this context's disparity
+    to every source's map in source order for the mismatch stage; None
+    means the context's own maps are every source's. Returns a dict of
+    (D, H, W) disparity/cost/confidence/mismatch maps.
     """
     d = len(ctx.dst2src)
     h, w = ctx.src_imgs.shape[1:3]
@@ -375,12 +410,13 @@ def process_level(ctx: LevelContext, cfg: SolverConfig, init_disparity=None, uni
     mismatch_mask = torch.zeros((d, h, w), dtype=torch.bool, device=dev)
     if not coarsest:
         if uniforms is None and generator is None:
-            generator = torch.Generator(device=dev).manual_seed(cfg.level)
+            generator = level_generator(cfg, dev)
         disparity, costs, confidences = random_proposals(
             ctx, cfg, disparity, costs, confidences, uniforms=uniforms, generator=generator)
         disparity, costs, confidences = ping_pong(ctx, cfg, disparity, costs, confidences)
         if 0 <= cfg.level <= cfg.mismatches_start_level:
-            disparity, mismatch_mask = handle_mismatches(ctx, cfg, disparity)
+            full = None if gather is None else gather(disparity)
+            disparity, mismatch_mask = handle_mismatches(ctx, cfg, disparity, full)
 
     if cfg.do_bilateral_filter:
         disparity = spatial_bilateral(ctx, cfg, disparity)

@@ -324,3 +324,35 @@ def test_convert_depth_on_the_card_equals_cpu(dev, tmp_path, depth_scale):
                           for d in ("cpu", dev))
     assert 0 < len(fd) <= 500
     assert vd.tobytes() == vc.tobytes() and fd.tobytes() == fc.tobytes()
+
+
+def test_sharded_level_over_nccl_equals_process_level(dev):
+    """One NCCL rank on the card (parallel/sharding.py, the production
+    backend): the level solve on the camera mesh, with its disparity
+    all-gather before the mismatch stage, equals process_level bit for
+    bit."""
+    import torch.distributed as dist
+
+    from facebook360_dep_tpu_torch.parallel import multihost, sharding
+    from torch_ranks import free_port
+
+    w, h = 96, 72
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=8, resolution=(w, h), mixed=True))
+    colors, gt = synthetic.render_sphere_scene(rig, (w, h), device=dev)
+    ctx = solver.make_level_context(rig, rig, colors, pipeline.generate_fov_masks(rig, (h, w), dev),
+                                    var_high_thresh=1e-2)
+    cfg = solver.SolverConfig(min_depth=1.0, max_depth=100.0, level=0, num_levels=2, mismatches_start_level=0)
+    init = (gt * 1.5).contiguous()
+    want = solver.process_level(ctx, cfg, init_disparity=init)
+    assert multihost.maybe_initialize(coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1,
+                                      process_id=0, device=dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = sharding.camera_mesh()
+        got = sharding.gather_result(sharding.process_level_sharded(ctx, cfg, mesh, init_disparity=init), mesh)
+    finally:
+        multihost.shutdown()
+    assert want["mismatches"].any()
+    for k, v in want.items():
+        a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (got[k], v))
+        assert torch.equal(a, b), k

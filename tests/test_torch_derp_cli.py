@@ -22,6 +22,7 @@ from facebook360_dep_tpu_torch.depth import pipeline as tpipe
 from facebook360_dep_tpu_torch.render import synthetic as tsyn
 
 from torch_parity import port_rig, tt
+from torch_ranks import spawn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEVELS = {0: (80, 60), 1: (56, 42), 2: (40, 30)}
@@ -111,15 +112,32 @@ def test_parser_accepts_every_jax_option():
     assert want == got
 
 
-@pytest.mark.parametrize("flag", ["--coordinator_address=localhost:1234"])
-def test_unported_options_raise(project, tmp_path, flag):
-    """Only the multi-GPU path is left to port (tests/test_torch_fg_depth.py
-    runs the foreground, debug and profiler options)."""
+def _tree(root):
+    """Every file under ``root`` by its relative path, as bytes."""
+    files = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                files[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return files
+
+
+def test_coordinator_address_joins_the_group_and_solves(project, tmp_path):
+    """Two gloo ranks on the CPU run derp_cli with --coordinator_address
+    (the JAX CLI's multi-host flags): each joins the group, then runs the
+    whole solve, as the JAX CLI does, into its own output root; both trees
+    equal a single run's byte for byte."""
     from facebook360_dep_tpu_torch.cli import derp_cli as tcli
 
     root, _, _ = project
-    with pytest.raises(NotImplementedError):
-        tcli.main(["--input_root", root, "--output_root", str(tmp_path), flag] + ARGS, device="cpu")
+    argv = ["--input_root", root] + ARGS
+    ranks = spawn(tmp_path, {"derp": (2, dict(kind="derp_cli", argv=argv, out=str(tmp_path)))})["derp"]
+    tcli.main(argv + ["--output_root", str(tmp_path / "single")], device="cpu")
+    want = _tree(tmp_path / "single")
+    assert len(want) == 3 * 4
+    for r, saved in enumerate(ranks):
+        assert (saved["rank"], saved["world"], saved["backend"]) == (r, 2, "gloo")
+        assert _tree(saved["out_root"]) == want
 
 
 def test_package_never_imports_jax():

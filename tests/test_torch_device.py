@@ -3,7 +3,8 @@ device: without a visible card they raise, and never carry on silently on
 the CPU. The tests that compare each CLI with the JAX package's pass
 ``device="cpu"`` (test_torch_derp_cli.py, test_torch_fg_depth.py,
 test_torch_render_cli.py, test_torch_depth_tools.py, test_torch_publish.py,
-test_torch_calib_cli.py, test_torch_isp.py, test_torch_inspect_cli.py). A
+test_torch_calib_cli.py, test_torch_isp.py, test_torch_inspect_cli.py,
+test_torch_multihost.py, test_torch_sharding.py). A
 CLI run with no ``device`` takes it from ``DEP_TORCH_DEVICE`` (unset: the
 card; ``cpu``: the CPU; any other value raises), which is how the farm's
 subprocess stages are steered (test_torch_dep_driver.py)."""
@@ -93,6 +94,23 @@ def test_calibration_stages_without_a_device_raise_without_a_card(no_card, entry
 def test_depth_estimator_without_a_device_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.DepthEstimator(pipeline.DepthEstimatorOptions(input_root="in", output_root="out"))
+
+
+def test_multihost_without_a_device_raises_without_a_card(no_card):
+    """The rank's device and the backend's choice mean the card unless the
+    CPU is asked for; derp_cli's coordinator flags join no group first."""
+    from facebook360_dep_tpu_torch.cli import derp_cli
+    from facebook360_dep_tpu_torch.parallel import multihost
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multihost.local_device(device)
+    assert multihost.local_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.maybe_initialize(coordinator_address="127.0.0.1:1", num_processes=1, process_id=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        derp_cli.main(ENTRY_POINTS["derp_cli"] + ["--coordinator_address", "127.0.0.1:1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_device_variable_steers_a_cli_and_an_argument_beats_it(no_card, monkeypatch):
