@@ -131,7 +131,26 @@
    camera mesh. Every rank's maps must equal the reference's bit for bit,
    every rank must launch K1-K3 in (a) and K1 and K3 in (b) (level 0 runs
    no K2); each rank prints its wall time, peak memory, launches and bytes
-   gathered, with the backend and the card's name and power limit.
+   gathered, with the backend and the card's name and power limit;
+15. holds the port to the reference's oracles and runs the CLIs that
+   enlarge images, on the card (tests/torch_oracle.py, the JAX-free copy of
+   the CPU tests' oracles): (a) cost_for_disparity against the scalar
+   computeCost oracle with the bounds of tests/test_cost_oracle.py: the
+   translation rig within 5e-4 (1 + |want|) of the 'perpixel' oracle at
+   64x48 (K1 then K2) and 512x384 (K3), the sphere's median gap from the
+   'center' oracle < 0.02 (> 90% under 0.2) on the original's 4-camera rig
+   at 64x48 and on the 16-camera ring at 256x192 (K1 then K2) and 512x384
+   (K3); then K2 against cost.combine_ssds, the sort-based plain combine,
+   at 256x192 (confidence equal, cost within 8 float32 ulps of the total
+   at all but 1e-4 of the pixels); (b) compute_rephotography_errors of
+   step 4's level-1 colors, enlarged, against the level-0 maps (K4; MSSIM
+   >= 89.95, printed beside step 7's), upsample_disparity of four cameras'
+   level 1 to 2048 with the level-1 colors, and view_thresholds at twice a
+   level-1 image's width: each returns and writes finite outputs; (c)
+   where g++, pkg-config and opencv4 are on the host, the sphere scene of
+   tests/test_ref_solver_oracle.py through the port's solver on the card
+   against tools/ref_cpu_baseline.cpp --mini_solver with its bounds (else
+   one line says why it did not run). K1-K4 must all launch in it.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,6 +176,12 @@ compared on one tree in one call.
 
 builds the kernels and runs step 14 alone, printed as one JSON object
 ``{"step14": ..., "phase_launches": ...}`` (no ``ok`` line).
+
+    python3 chip_smoke.py --step15
+
+builds the kernels, writes and solves the sphere tree (steps 4-5, 7) and
+runs step 15 on it, printed as one JSON object ``{"step15": ...,
+"phase_launches": ...}`` (no ``ok`` line).
 
     python3 chip_smoke.py --kernels-only
 
@@ -2139,6 +2164,210 @@ def run_step14(tmp: str, dev, smi: str, widths=WIDTHS):
     return metrics, phases
 
 
+def _oracle_module():
+    """tests/torch_oracle.py: the reference's scalar cost oracle and its
+    mini-solver oracle without JAX, shared with the CPU tests."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_oracle
+
+    return torch_oracle
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def step15_cost_oracles(oracle, dev, smi: str):
+    """Step 15 (a): the port's cost_for_disparity on the card held to the
+    reference's scalar cost oracle (tests/torch_oracle.py) with the bounds
+    of tests/test_cost_oracle.py: the translation rig against the
+    'perpixel' oracle (5e-4 * (1 + |want|), >= 20 pixels) at 64x48 (K1
+    then K2) and at 512x384 (K3); the sphere against the literal 'center'
+    oracle (median gap < 0.02, > 90% under 0.2) on the 4-camera rig of the
+    original at 64x48, and on the 16-camera ring at 256x192 (K1 then K2)
+    and at 512x384 (K3). Returns (metrics, launches, the 256x192 scene for
+    the K2 check)."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.ops import cost
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    def cost_map(rig, imgs, disparity):
+        ctx, variance = oracle.one_dst_cost_context(rig, imgs, 0, dev)
+        return cost.cost_for_disparity(ctx, disparity)[0][0].cpu().numpy(), variance
+
+    def path(size):
+        return "K3" if size[0] * size[1] >= cost.FUSED_MIN_PIXELS else "K1 then K2"
+
+    metrics, scene256 = {}, None
+    t = _phase_start()
+    for size in ((64, 48), (512, 384)):
+        checked, worst = oracle.check_translation_rig(cost_map, size=size)
+        log(f"  translation rig {size[0]}x{size[1]} ({path(size)}): {checked} pixels within 5e-4 (1 + |want|) of the "
+            f"'perpixel' oracle, largest gap {worst:.3e}")
+        metrics[f"oracle_translation_{size[0]}x{size[1]}_max_rel"] = float(worst)
+    for n, ring, size in ((4, 0.1, (64, 48)), (NUM_CAMERAS, 0.3, (256, 192)), (NUM_CAMERAS, 0.3, (512, 384))):
+        rig = synthetic.make_test_rig(num_cameras=n, resolution=size, ring_radius=ring)
+        nrig = cam.normalize_rig(rig)
+        colors, gt = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)
+        colors = colors.cpu().numpy()
+        disparity = float(np.nanmedian(gt[0].cpu().numpy()))
+        c_map, variance = cost_map(nrig, colors, disparity)
+        pixels, median, share = oracle.check_general_rig(nrig, colors, disparity, c_map, variance)
+        log(f"  sphere, {n} cameras, {size[0]}x{size[1]} ({path(size)}): {pixels} pixels, median gap from the "
+            f"'center' oracle {median:.5f} (bar 0.02), share under 0.2 {share:.3f} (bar 0.9)")
+        metrics[f"oracle_sphere_{n}cams_{size[0]}x{size[1]}_median"] = median
+        if size == (256, 192):
+            scene256 = (nrig, colors, disparity)
+    seconds, launches = _phase_end("cost oracles on the card (step 15a)", t, smi)
+    metrics["step15a_s"] = seconds
+    return metrics, launches, scene256
+
+
+def step15_k2_against_combine_ssds(oracle, scene, dev):
+    """Step 15 (a), last: K2's cost and confidence at 256x192 against
+    cost.combine_ssds, the sort-based plain combine, on K1's samples (not
+    counted as the path's launches). The confidence must be equal; the
+    cost within 8 float32 ulps of the total of the unbiased SSDs, scaled
+    as the cost is (K2 drops the two worst from a running total, the sort
+    keeps a prefix), at all but 1e-4 of the pixels, where a near tie of
+    two biased SSDs may order them apart."""
+    import torch
+
+    from facebook360_dep_tpu_torch.ops import cost
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    nrig, colors, disparity = scene
+    ctx, _ = oracle.one_dst_cost_context(nrig, colors, 0, dev)
+    d, _, h, w = ctx.dst_planar.shape
+    disp = torch.full((d, h, w), disparity, dtype=torch.float32, device=dev)
+    sampled, valid = wc.project_sample(ctx.src_rgba, ctx.src_params, ctx.cam_dst.position, disp, ctx.dst_rays)
+    k2_cost, k2_conf = wc.ssd_combine(sampled[0], valid[0], ctx.dst_planar[0], ctx.variance[0], ctx.exclude_idx[0])
+    biased, unbiased, v = cost.ssd_planar(ctx.dst_planar[0].permute(1, 2, 0), sampled[0], valid[0])
+    v = v & (torch.arange(v.shape[0], device=dev) != ctx.exclude_idx[0])[:, None, None]
+    plain_cost, plain_conf = cost.combine_ssds(biased, unbiased, v, ctx.variance[0])
+    _require(torch.equal(k2_conf, plain_conf), "K2's confidence differs from combine_ssds'")
+    _require(torch.equal(k2_cost >= 1e30, plain_cost >= 1e30), "K2's FLT_MAX pixels differ from combine_ssds'")
+    keep = torch.clamp(v.sum(0) - 2, min=1).to(torch.float32)
+    total = torch.where(v, unbiased, 0.0).sum(0) / (keep * keep) / plain_conf.clamp(min=cost.MIN_VAR)
+    finite = plain_cost < 1e30
+    gap = torch.where(finite, (k2_cost - plain_cost).abs(), 0.0)
+    outside = float(((gap > 8 * 1.1920929e-07 * total) & finite).double().mean())
+    max_err = float(gap.max())
+    log(f"  K2 against combine_ssds at {w}x{h}: max_abs_err {max_err:.3e}, outside 8 ulps of the total {outside:.2e} "
+        f"(allowed 1e-4); confidence equal")
+    _require(outside <= 1e-4, f"K2 against combine_ssds: {outside:.2e} of the pixels outside the bound")
+    return dict(k2_vs_combine_ssds_max_abs_err=max_err, k2_vs_combine_ssds_outside=outside)
+
+
+def step15_enlarging_clis(tmp: str, root: str, out_root: str, full_mssim: float, dev, smi: str):
+    """Step 15 (b): the CLIs that raised on enlarging resizes before the
+    port had them, on the sphere project of step 4: the rephotography of
+    the level-1 colors (1024x768, enlarged) against the level-0 maps
+    (K4), upsample_disparity of four cameras' level 1 to 2048 with the
+    level-1 colors, and view_thresholds color_variance of a level-1 image
+    at twice its width. Each must return and write finite outputs; the
+    rephotography must meet the repo's bar, 89.95. Returns (metrics,
+    launches)."""
+    import numpy as np
+
+    from facebook360_dep_tpu_torch.cli import compute_rephotography_errors as cre
+    from facebook360_dep_tpu_torch.cli import upsample_disparity, view_thresholds
+    from facebook360_dep_tpu_torch.core import io
+
+    rig_path = os.path.join(root, "rigs/rig_calibrated.json")
+    level1 = os.path.join(root, "video/color_levels/level_1")
+    launches, metrics = {}, {}
+    t = _phase_start()
+    result = cre.main(device=dev, argv=[
+        "--color", level1, "--disparity", os.path.join(out_root, "disparity_levels/level_0"), "--rig", rig_path,
+        "--output", os.path.join(tmp, "rephoto_level1"), "--first", "000000", "--last", "000000"])
+    metrics["step15_rephoto_s"], launches = _phase_end("rephotography of enlarged level-1 colors (step 15b)", t, smi)
+    mssim = 100 * sum(result["total"]) / 3
+    small = io.image_size(os.path.join(level1, "cam0", "000000.png"))
+    log(f"  TOTAL average MSSIM {mssim:.3f} from {small[0]}x{small[1]} colors enlarged to {WIDTHS[0]}x"
+        f"{height(WIDTHS[0])} (bar 89.95; from the full-size colors {full_mssim:.3f}, step 7); K4 launches "
+        f"{launches['warp_sample']}")
+    _require(launches["warp_sample"] > 0, "K4 never launched by the enlarged rephotography")
+    _require(bool(np.isfinite(mssim)) and mssim >= 90.0 - 0.05, f"enlarged rephotography MSSIM {mssim}")
+    metrics["step15_rephoto_mssim"] = mssim
+
+    cams = ["cam0", "cam1", "cam2", "cam3"]
+    out = os.path.join(tmp, "upsampled")
+    t = _phase_start()
+    upsample_disparity.main(["--rig", rig_path, "--disparity", os.path.join(out_root, "disparity_levels/level_1"),
+                             "--output", out, "--resolution", str(WIDTHS[0]), "--color", level1,
+                             "--cameras", ",".join(cams)], device=dev)
+    metrics["step15_upsample_s"], _ = _phase_end("upsample_disparity level 1 -> 2048 with level-1 colors (step 15b)",
+                                                 t, smi)
+    for c in cams:
+        up = io.read_disparity(os.path.join(out, c, "000000.pfm"))
+        _require(up.shape == (height(WIDTHS[0]), WIDTHS[0]) and bool(np.isfinite(up).all()),
+                 f"upsample_disparity {c}: shape {up.shape}, finite {np.isfinite(up).mean():.4f}")
+
+    out = os.path.join(tmp, "thresholds")
+    t = _phase_start()
+    view_thresholds.main(["color_variance", "--fullsize_image", os.path.join(level1, "cam0", "000000.png"),
+                          "--width", str(WIDTHS[0]), "--output_dir", out], device=dev)
+    metrics["step15_view_thresholds_s"], _ = _phase_end("view_thresholds at twice the image's width (step 15b)",
+                                                        t, smi)
+    with open(os.path.join(out, "variance_sweep.json")) as f:
+        stats = json.load(f)["variance_stats"]
+    pngs = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+    vis = io.read_color(os.path.join(out, pngs[0]))
+    log(f"  {len(pngs)} visualizations of {vis.shape[1]}x{vis.shape[0]}; variance median {stats['median']:.3e}")
+    _require(vis.shape[:2] == (height(WIDTHS[0]), WIDTHS[0]) and all(np.isfinite(v) for v in stats.values()),
+             f"view_thresholds wrote {vis.shape} with {stats}")
+    return metrics, launches
+
+
+def step15_reference_solver(tmp: str, oracle, dev, smi: str):
+    """Step 15 (c): the sphere scene of tests/test_ref_solver_oracle.py (16
+    cameras, 256x192) through the port's solver on the card against
+    tools/ref_cpu_baseline.cpp --mini_solver, with its bounds, where g++,
+    pkg-config and opencv4 are on this host; else one line says why not.
+    Returns (metrics, launches)."""
+    missing = oracle.ref_tool_missing()
+    if missing:
+        log(f"  step 15c: the reference mini-solver did not run: {missing} on this host")
+        return dict(step15_ref_solver=f"not run: {missing}"), {}
+    tool = oracle.build_ref_tool(os.path.join(tmp, "ref_cpu_baseline"))
+    rig, u16, gt = oracle.ref_scene("sphere", device=dev)
+    t = _phase_start()
+    port_disp, var_floor = oracle.run_port_mini_solver(rig, u16, dev)
+    seconds, launches = _phase_end("the port's mini-solver on the card (step 15c)", t, smi)
+    ref_disp = oracle.run_reference(tool, rig, u16, var_floor, os.path.join(tmp, "ref_solver"))
+    readings = oracle.check_against_reference("sphere", port_disp, ref_disp, gt)
+    log(f"  sphere: agree relRMSE {readings['agree_rel_rmse']:.5f} (bar 0.05), median {readings['agree_median']:.5f} "
+        f"(bar 0.002); GT relRMSE port {readings['port_gt_rel_rmse']:.5f} vs reference "
+        f"{readings['ref_gt_rel_rmse']:.5f} (bar 1.10x)")
+    return dict(step15_ref_solver=readings, step15_ref_solver_s=seconds), launches
+
+
+def run_step15(tmp: str, root: str, out_root: str, full_mssim: float, dev, smi: str):
+    """Step 15: parity and oracles on the card. (a) the cost oracles and
+    K2 against combine_ssds, (b) the enlarging CLIs, (c) the reference
+    mini-solver. Every kernel must launch in it. Returns (metrics,
+    launches of (a)-(c) by kernel)."""
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    os.makedirs(tmp, exist_ok=True)
+    oracle = _oracle_module()
+    metrics, launches_a, scene256 = step15_cost_oracles(oracle, dev, smi)
+    metrics.update(step15_k2_against_combine_ssds(oracle, scene256, dev))
+    m, launches_b = step15_enlarging_clis(tmp, root, out_root, full_mssim, dev, smi)
+    metrics.update(m)
+    m, launches_c = step15_reference_solver(tmp, oracle, dev, smi)
+    metrics.update(m)
+    launches = {k: sum(part.get(k, 0) for part in (launches_a, launches_b, launches_c)) for k in wc.LAUNCHES}
+    missing = [k for k, n in launches.items() if n <= 0]
+    _require(not missing, f"kernels never launched in step 15: {missing}")
+    log(f"  step 15 launches: {launches}")
+    return metrics, launches
+
+
 @contextlib.contextmanager
 def profiled(out_dir, name):
     """torch.profiler over the block when ``out_dir`` is set; writes the
@@ -2184,6 +2413,9 @@ def main(argv=None) -> int:
                         help="build K1-K4, run the K1-K3 checks and per-level times (step 3), print them and stop")
     parser.add_argument("--step14", action="store_true",
                         help="build the kernels, run the multi-GPU path (step 14) alone, print its JSON and stop")
+    parser.add_argument("--step15", action="store_true",
+                        help="build the kernels, write and solve the sphere tree (steps 4-5), run the parity and "
+                             "oracle checks (step 15) on it, print its JSON and stop")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2239,6 +2471,20 @@ def main(argv=None) -> int:
         log(json.dumps({"step14": step14, "phase_launches": phases}))
         return 0
 
+    if args.step15:  # steps 4-5 and 15 alone: no kernels or ok line
+        with tempfile.TemporaryDirectory(prefix="fdt_step15_") as root:
+            write_project(root, dev)
+            out_root = os.path.join(root, "out")
+            run_solve(root, out_root, "", dev)
+            render, _ = run_rephotography(root, out_root, "", dev)
+            t = time.time()
+            step15, phases = run_step15(os.path.join(root, "step15"), root, out_root, render["rephoto_mssim"], dev,
+                                        smi)
+            log(f"parity and oracles (step 15): {time.time() - t:.1f} s; {smi}")
+        log(smi)
+        log(json.dumps({"step15": step15, "phase_launches": phases}))
+        return 0
+
     t = time.time()
     checks = check_kernels(dev)
     log(f"kernel checks: {time.time() - t:.1f} s")
@@ -2292,10 +2538,15 @@ def main(argv=None) -> int:
         step14, step14_launches = run_step14(root, dev, smi)
         log(f"multi-GPU path (step 14): {time.time() - t:.1f} s; {smi}")
 
+        t = time.time()
+        step15, step15_launches = run_step15(os.path.join(root, "step15"), root, out_root, render["rephoto_mssim"],
+                                             dev, smi)
+        log(f"parity and oracles (step 15): {time.time() - t:.1f} s; {smi}")
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
                     "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
-                    **calibration, **shoot, **step13, **step14}))
+                    **calibration, **shoot, **step13, **step14, **step15}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
@@ -2309,7 +2560,8 @@ def main(argv=None) -> int:
         if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback, step 13
             entry["phase_launches"] = dict(rephotography=launches[name], eqrcolor=render["eqrcolor_k4_launches"],
                                            tbstereo=render["tbstereo_k4_launches"], playback=k4_playback,
-                                           occluder_rephotography=step13_launches["occluder_rephotography"])
+                                           occluder_rephotography=step13_launches["occluder_rephotography"],
+                                           step15=step15_launches[name])
         else:  # K1-K3 in step 13's solves, K1 in geometric_consistency, and step 14's ranks
             entry["phase_launches"] = {phase: step13_launches[phase][name]
                                        for phase in ("occluder_solve", "ftheta_solve")}
@@ -2318,7 +2570,7 @@ def main(argv=None) -> int:
             entry["phase_launches"].update(
                 step14a_ranks=[r[name] for r in step14_launches["step14a_ranks"]],
                 step14b_ranks=[r[name] for r in step14_launches["step14b_ranks"]],
-                step14c=step14_launches["step14c"][name])
+                step14c=step14_launches["step14c"][name], step15=step15_launches[name])
         kernels.append(entry)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -77,17 +77,30 @@ def detect_corners(
     quality_level: float = 0.01,
     min_distance: int = 5,
     octaves: int = 1,
+    fov_mask=None,
 ) -> Corners:
     """Top-N corners with NMS, optionally over a scale pyramid
     (FeatureDetector.cpp:55-183). ``gray`` (H, W): a tensor, whose device
-    computes the response, or a numpy array (the CPU)."""
+    computes the response, or a numpy array (the CPU). ``fov_mask`` (H, W),
+    on the host or the device, keeps the corners inside it: at each octave
+    the mask, as uint8, is area-resized on the host to the response's
+    shape, and the response is -inf where it is not > 0."""
     from scipy.ndimage import maximum_filter
+
+    from ..core import io
 
     all_xy, all_score = [], []
     img = torch.as_tensor(gray).to(torch.float32)
+    if fov_mask is not None:
+        fov_mask = torch.as_tensor(fov_mask).cpu().numpy()
     scale = 1.0
     for _ in range(max(octaves, 1)):
         resp = shi_tomasi_response(img).cpu().numpy()
+        if fov_mask is not None:
+            m = fov_mask
+            if m.shape != resp.shape:
+                m = io.resize_image(m.astype(np.uint8), (resp.shape[1], resp.shape[0])) > 0
+            resp = np.where(m, resp, -np.inf)
         # NMS: keep local maxima over a (2r+1)^2 window
         r = max(min_distance, 1)
         local_max = resp == maximum_filter(resp, size=2 * r + 1, mode="nearest")

@@ -21,7 +21,6 @@ import os
 import re
 
 import numpy as np
-import torch
 
 from . import exr, png
 
@@ -256,44 +255,189 @@ def _resize_area_tables(img: np.ndarray, w_out: int, h_out: int, sx: float, sy: 
     return reduce(np.ascontiguousarray(np.moveaxis(cols, 0, 1)), yi, yw, yn)
 
 
+def _resize_area_boxes_int(img: np.ndarray, fx: int, fy: int, w_out: int, h_out: int) -> np.ndarray:
+    """cv2's INTER_AREA at integer factors (resizeAreaFast_) of an integer
+    image: 2x2 boxes of one, three or four channels take OpenCV's vector
+    rounding ``(a + b + c + d + 2) >> 2``; other boxes
+    ``cvRound(float(sum) * (1.f / area))``, half to even."""
+    total = img.reshape((h_out, fy, w_out, fx) + img.shape[2:]).astype(np.int64).sum(axis=(1, 3))
+    channels = img.shape[2] if img.ndim == 3 else 1
+    if fx == fy == 2 and channels in (1, 3, 4):
+        return (total + 2) >> 2
+    return np.rint(total.astype(np.float32) * np.float32(1.0 / (fx * fy)))
+
+
+def _cubic_coeffs(f: np.ndarray) -> np.ndarray:
+    """imgproc/resize.cpp interpolateCubic (A = -0.75) in float32."""
+    a, one = np.float32(-0.75), np.float32(1.0)
+    x1, g = f + one, one - f
+    c0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * f - (a + np.float32(3))) * f * f + one
+    c2 = ((a + np.float32(2)) * g - (a + np.float32(3))) * g * g + one
+    return np.stack([c0, c1, c2, one - c0 - c1 - c2], -1)
+
+
+_KSIZE = {"area": 2, "linear": 2, "cubic": 4, "lanczos": 8}
+
+
+def _resize_taps(src: int, dst: int, mode: str, is_x: bool, exact_coords: bool = False):
+    """cv::resize's taps along one axis (hal::resize, the generic path):
+    each output index's source indices, clamped to the image (replicated
+    border), and its float32 coefficients. ``"area"`` here is INTER_AREA
+    where an axis enlarges: source ``s = floor(d * src / dst)`` with weight
+    ``frac((d + 1) - (s + 1) * dst / src)`` (0 where that is <= 0) on
+    ``s + 1``. The other modes sample at half-pixel centers, the coordinate
+    rounded to float32 unless ``exact_coords`` (OpenCV 5's INTER_LINEAR of
+    a non-8-bit image keeps it in double). Along x, linear and area clamp
+    the first source index into the image with weight 0 on its neighbour."""
+    if mode == "lanczos":
+        from ..ops import sampling
+
+        return sampling._lanczos4_taps(src, dst)
+    inv = dst / src
+    scale = 1.0 / inv
+    d = np.arange(dst)
+    if mode == "area":
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f))
+    else:
+        f = (d + 0.5) * scale - 0.5
+        if not exact_coords:
+            f = f.astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = f - s
+    k = _KSIZE[mode]
+    if k == 2:
+        if is_x:
+            edge = (s < 0) | (s >= src - 1)
+            f = np.where(edge, 0.0, f)
+            s = np.clip(s, 0, src - 1)
+        coeffs = np.stack([1.0 - f, f], -1)
+    else:
+        coeffs = _cubic_coeffs(f.astype(np.float32))
+    idx = np.clip(s[:, None] - k // 2 + 1 + np.arange(k), 0, src - 1)
+    return idx, coeffs
+
+
+def _resize_separable(img: np.ndarray, w_out: int, h_out: int, mode: str) -> np.ndarray:
+    """cv::resize's generic separable path (resizeGeneric_): a horizontal
+    pass into row buffers, then a vertical pass over 2 (linear, enlarging
+    area), 4 (cubic) or 8 (Lanczos4) rows, at cv2's arithmetic for each
+    depth:
+
+    - 8-bit: 11-bit fixed-point coefficients, integer row sums; the linear
+      rows combine as OpenCV's vector code does,
+      ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16) + 2 >> 2``, the
+      others ``(sum + 2**21) >> 22``.
+    - OpenCV 5's INTER_LINEAR of 16-bit and float images: coordinates in
+      double and each pass ``a + (b - a) * f`` rounded once (a fused
+      multiply-add) to float32, float64 for float64 images.
+    - Otherwise float32 (float64 for float64 images) sums in tap order.
+
+    Integer results round half to even and saturate."""
+    h, w = img.shape[:2]
+    chan = (1,) * (img.ndim - 2)
+    if img.dtype == np.uint8:
+        (xi, xw), (yi, yw) = _resize_taps(w, w_out, mode, True), _resize_taps(h, h_out, mode, False)
+        xa, ya = (np.rint(c.astype(np.float32) * np.float32(2048)).astype(np.int64) for c in (xw, yw))
+        src = img.astype(np.int64)
+        rows = src[:, xi[:, 0]] * xa[:, 0].reshape((-1,) + chan)
+        for t in range(1, xi.shape[1]):
+            rows = rows + src[:, xi[:, t]] * xa[:, t].reshape((-1,) + chan)
+        b = [ya[:, t].reshape((-1, 1) + chan) for t in range(yi.shape[1])]
+        if len(b) == 2:
+            out = ((((rows[yi[:, 0]] >> 4) * b[0]) >> 16) + (((rows[yi[:, 1]] >> 4) * b[1]) >> 16) + 2) >> 2
+        else:
+            out = rows[yi[:, 0]] * b[0]
+            for t in range(1, len(b)):
+                out = out + rows[yi[:, t]] * b[t]
+            out = (out + (1 << 21)) >> 22
+        return np.clip(out, 0, 255).astype(np.uint8)
+    wt = np.float64 if img.dtype == np.float64 else np.float32
+    src = img.astype(wt)
+    if mode == "linear":
+        xi, xw = _resize_taps(w, w_out, mode, True, exact_coords=True)
+        yi, yw = _resize_taps(h, h_out, mode, False, exact_coords=True)
+
+        def lerp(a, b, f):
+            if wt is np.float64:
+                return a + (b - a) * f
+            return (a.astype(np.float64) + (b - a).astype(np.float64) * f.astype(np.float32)).astype(np.float32)
+
+        rows = lerp(src[:, xi[:, 0]], src[:, xi[:, 1]], xw[:, 1].reshape((-1,) + chan))
+        out = lerp(rows[yi[:, 0]], rows[yi[:, 1]], yw[:, 1].reshape((-1, 1) + chan))
+    else:
+        (xi, xw), (yi, yw) = _resize_taps(w, w_out, mode, True), _resize_taps(h, h_out, mode, False)
+        xw, yw = xw.astype(np.float32), yw.astype(np.float32)
+        rows = src[:, xi[:, 0]] * xw[:, 0].reshape((-1,) + chan)
+        for t in range(1, xi.shape[1]):
+            rows = rows + src[:, xi[:, t]] * xw[:, t].reshape((-1,) + chan)
+        out = rows[yi[:, 0]] * yw[:, 0].reshape((-1, 1) + chan)
+        for t in range(1, yi.shape[1]):
+            out = out + rows[yi[:, t]] * yw[:, t].reshape((-1, 1) + chan)
+    if img.dtype.kind == "f":
+        return out.astype(img.dtype)
+    info = np.iinfo(img.dtype)
+    return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
+
+
+_INTERPOLATIONS = ("area", "linear", "nearest", "cubic", "lanczos")
+# the depths cv2.resize interpolates (8U, 16U, 16S, 32F, 64F); INTER_NEAREST takes any
+_RESIZE_DTYPES = (np.uint8, np.uint16, np.int16, np.float32, np.float64)
+
+
 def resize_image(img: np.ndarray, size_wh, interpolation: str = "area") -> np.ndarray:
-    """``cv2.resize(img, size_wh, interpolation=...)`` on the host.
+    """``cv2.resize(img, size_wh, interpolation=...)`` on the host, for an
+    (H, W) or (H, W, C) image of uint8, uint16, int16, float32 or float64
+    (``"nearest"``: any dtype).
 
-    - ``"area"`` (INTER_AREA) shrinks a float image (H, W) or (H, W, C):
-      at integer factors on both axes the mean of each box (cv2's fast
-      path, :func:`_resize_area_boxes`), else cv2's area-weighted tables
-      (:func:`_resize_area_tables`).
-    - ``"nearest"`` (INTER_NEAREST), any dtype:
+    - The same size is a copy.
+    - ``"area"`` (INTER_AREA) shrinking both axes: at integer factors the
+      box means of cv2's fast path (:func:`_resize_area_boxes`,
+      :func:`_resize_area_boxes_int`), else its area-weighted tables
+      (:func:`_resize_area_tables`). Where either axis enlarges, cv2's
+      area-weighted linear interpolation (:func:`_resize_separable`).
+    - ``"nearest"`` (INTER_NEAREST):
       ``src = min(floor(dst * (1 / (dst_size / src_size))), src_size - 1)``.
-    - ``"lanczos"`` (INTER_LANCZOS4) of a float image, through
-      :func:`..ops.sampling.resize_lanczos4`.
+    - ``"linear"``, ``"cubic"`` (A = -0.75) and ``"lanczos"``
+      (INTER_LANCZOS4): :func:`_resize_separable`; ``"linear"`` of a uint8
+      image at exactly half size on both axes is cv2's 2x2 area mean, as
+      cv2 turns it.
 
-    Any other mode, an enlarging ``"area"`` and non-float ``"area"`` or
-    ``"lanczos"`` raise NotImplementedError.
+    Another mode raises ValueError and another dtype TypeError, as cv2
+    rejects them.
     """
     img = np.asarray(img)
     w_out, h_out = (int(v) for v in size_wh)
     h, w = img.shape[:2]
+    if interpolation not in _INTERPOLATIONS:
+        raise ValueError(f"resize_image: unknown interpolation {interpolation!r}; one of {_INTERPOLATIONS}")
     if interpolation == "nearest":
         out = img[nearest_index(h, h_out)][:, nearest_index(w, w_out)]
-    elif interpolation == "lanczos" and img.dtype.kind == "f":
-        from ..ops import sampling
-
-        out = sampling.resize_lanczos4(torch.from_numpy(np.ascontiguousarray(img)), (w_out, h_out)).numpy()
-    elif interpolation == "area" and img.dtype.kind == "f" and 0 < w_out <= w and 0 < h_out <= h:
+    elif img.dtype not in _RESIZE_DTYPES:
+        raise TypeError(f"resize_image: cv2.resize does not interpolate {img.dtype} images ({interpolation!r})")
+    elif (w_out, h_out) == (w, h):
+        out = img.copy()
+    else:
         sx, sy = 1.0 / (w_out / w), 1.0 / (h_out / h)
         fx, fy = int(np.rint(sx)), int(np.rint(sy))
         eps = np.finfo(np.float64).eps
-        src = img.astype(np.float32)
-        if abs(sx - fx) < eps and abs(sy - fy) < eps:
-            out = _resize_area_boxes(src, fx, fy, w_out, h_out)
+        integer = abs(sx - fx) < eps and abs(sy - fy) < eps
+        if interpolation == "linear" and integer and fx == fy == 2 and img.dtype == np.uint8:
+            interpolation = "area"
+        if interpolation == "area" and sx >= 1 and sy >= 1:
+            src = img.astype(np.float32)
+            if img.dtype.kind == "f":
+                out = (_resize_area_boxes(src, fx, fy, w_out, h_out) if integer
+                       else _resize_area_tables(src, w_out, h_out, sx, sy)).astype(img.dtype)
+            else:
+                out = (_resize_area_boxes_int(img, fx, fy, w_out, h_out) if integer
+                       else np.rint(_resize_area_tables(src, w_out, h_out, sx, sy)))
+                info = np.iinfo(img.dtype)
+                out = np.clip(out, info.min, info.max).astype(img.dtype)
         else:
-            out = _resize_area_tables(src, w_out, h_out, sx, sy)
-        out = out.astype(img.dtype)
-    else:
-        raise NotImplementedError(
-            f"resize_image: mode {interpolation!r} ({img.dtype}) from {w}x{h} to {w_out}x{h_out}; "
-            "ported: 'area' shrinking a float image, 'nearest', 'lanczos' on a float image")
+            out = _resize_separable(img, w_out, h_out, interpolation)
     return out[..., 0] if out.ndim == 3 and out.shape[2] == 1 else out  # cv2 drops a single channel
 
 

@@ -84,6 +84,17 @@ def _disparity_map(disparity, shape, device) -> torch.Tensor:
     return torch.full(shape, float(disparity), dtype=torch.float32, device=device)
 
 
+def reproject_to_src(cam_dst: cam.Camera, cam_src: cam.Camera, disparity, dst_hw, src_hw):
+    """Per-pixel src sampling coords for a disparity map (or scalar), on the
+    device of the cameras: ((..., H, W, 2) coords in src pixel units,
+    (..., H, W) validity). Derp.cpp:144-162 (dstToWorldPoint ->
+    worldToSrcPoint); :func:`reproject_rays` with the dst unprojection done
+    here (cost.py:148-157)."""
+    h, w = dst_hw
+    rays = dst_ray_dirs(cam_dst, h, w).permute(2, 0, 1)
+    return reproject_rays(cam_dst.position, rays, cam_src, disparity, src_hw)
+
+
 def reproject_rays(dst_position, dst_rays, cam_src: cam.Camera, disparity, src_hw):
     """Per-pixel src sampling coords for a disparity map (or scalar).
 
@@ -140,13 +151,43 @@ def per_src_ssd(ctx_pos_rays, cam_src, dst_img, src_img, disparity, radius=SEARC
     return biased[0], unbiased[0], v[0]
 
 
+def combine_ssds(biased, unbiased, valid, variance):
+    """Cross-camera reduction by a sort, the plain form of Derp.cpp:203-225
+    (cost.py:200-226): order the sources by biased SSD (a stable sort, so
+    equal SSDs keep their index order), average the unbiased SSDs of the
+    ``keep = clip(max(count - 2, 1), 1, n)`` best, divide by keep^2 and by
+    the confidence max(var, kMinVar).
+
+    biased/unbiased/valid: (N, H, W); variance: (H, W), on one device.
+    Returns (cost, confidence), each (H, W); cost is FLT_MAX where fewer
+    than kMinOverlappingCams - 1 sources see the point. :func:`combine_top2`
+    and the kernel K2 compute it without a sort.
+    """
+    n = biased.shape[0]
+    order = torch.argsort(torch.where(valid, biased, float("inf")), dim=0, stable=True)
+    prefix = torch.cumsum(torch.gather(torch.where(valid, unbiased, 0.0), 0, order), dim=0)
+    count = valid.sum(dim=0)
+    min_keep = MIN_OVERLAPPING_CAMS - 1
+    keep = torch.clamp(torch.clamp(count - 2, min=min_keep), 1, n)
+    cost_sum = torch.gather(prefix, 0, (keep - 1)[None])[0]
+    keepf = keep.to(biased.dtype)
+    confidence = torch.clamp(variance, min=MIN_VAR)
+    cost = cost_sum / (keepf * keepf) / confidence
+    enough = count >= min_keep
+    return torch.where(enough, cost, FLT_MAX), torch.where(enough, confidence, 0.0)
+
+
 def combine_top2(biased, unbiased, valid, variance):
     """Cross-camera drop-2-worst reduction without a sort (cost.py:229-264).
 
     biased/unbiased/valid: (N, H, W); variance: (H, W). Keeps the two
     largest biased SSDs (first index wins ties) and subtracts their unbiased
     values from the total: keep = clip(max(count-2, 1), 1, n). Returns
-    (cost, confidence); cost is FLT_MAX where no camera counts.
+    (cost, confidence); cost is FLT_MAX where no camera counts. It equals
+    :func:`combine_ssds` up to float32 rounding (a total less two terms
+    against a prefix sum) wherever the dropped SSDs are not tied with a
+    kept one; on such a tie this drops the first index and the sort the
+    last.
     """
     n = biased.shape[0]
     neg = -FLT_MAX

@@ -119,3 +119,88 @@ def test_brute_force_disparity(contexts):
     assert same.mean() > 0.98, same.mean()
     fin = same & np.isfinite(j_c)
     assert rel_err(t_c[fin], j_c[fin]).max() < 1e-4
+
+
+@pytest.mark.parametrize("disparity", ["map", 0.25])
+def test_reproject_to_src(disparity):
+    """The dst unprojection plus reproject_rays: validity identical, coords
+    to float32 ulps of O(50) px (as test_reproject_rays)."""
+    cams = jax_f32(jcam.normalize_rig(ring_rig(jcam, "", n=4, mixed=True)).cameras)
+    tc = tcam.camera_from_numpy(cams)
+    d = disparity
+    if disparity == "map":
+        d = f32(np.random.RandomState(1).rand(36, 48) * 0.5)
+        d[1, :3] = [0.0, -0.1, np.nan]
+    for i, j in ((0, 1), (2, 3), (3, 0)):
+        jc, jv = jcost.reproject_to_src(jax.tree.map(lambda a: a[i], cams), jax.tree.map(lambda a: a[j], cams),
+                                        jnp.asarray(d), (36, 48), (30, 40))
+        t_c, t_v = tcost.reproject_to_src(tc.index(i), tc.index(j), tt(d) if disparity == "map" else d,
+                                          (36, 48), (30, 40))
+        assert t_c.shape == (36, 48, 2) and np.array_equal(t_v.numpy(), np.asarray(jv))
+        ok = np.asarray(jv)
+        assert ok.mean() > 0.3
+        np.testing.assert_allclose(t_c.numpy()[ok], np.asarray(jc)[ok], atol=1e-4, rtol=1e-5)
+
+
+def _ssd_stacks(n, seed, ties=False):
+    """Random (N, H, W) biased >= unbiased SSD stacks with every valid
+    count from 0 to N; ``ties`` rounds the biased SSDs to a few levels."""
+    rng = np.random.RandomState(seed)
+    biased = f32(rng.rand(n, 24, 32) * 2.0)
+    if ties:
+        biased = f32(np.round(biased * 2.0) / 2.0)
+    unbiased = f32(biased * rng.rand(n, 24, 32))
+    valid = rng.rand(n, 24, 32) < np.linspace(0.0, 1.0, 32)[None, None, :]
+    variance = f32(rng.rand(24, 32) * 1e-3)
+    return biased, unbiased, valid, variance
+
+
+@pytest.mark.parametrize("n,ties", [(2, False), (4, False), (6, False), (6, True)])
+def test_combine_ssds_matches_jax(n, ties):
+    """The sort-based combine against the JAX one: same FLT_MAX pixels and
+    confidence, costs to float32 rounding (1e-6 relative: the prefix sums
+    add in one order, XLA's cumsum may add in another)."""
+    b, u, v, var = _ssd_stacks(n, seed=n + 10 * ties, ties=ties)
+    j_cost, j_conf = map(np.asarray, jcost.combine_ssds(jnp.asarray(b), jnp.asarray(u), jnp.asarray(v),
+                                                        jnp.asarray(var)))
+    t_cost, t_conf = (x.numpy() for x in tcost.combine_ssds(tt(b), tt(u), tt(v), tt(var)))
+    assert np.array_equal(t_cost >= 1e30, j_cost >= 1e30) and (t_cost >= 1e30).any() and (t_cost < 1e30).any()
+    np.testing.assert_array_equal(t_conf, j_conf)
+    ok = j_cost < 1e30
+    assert rel_err(t_cost[ok], j_cost[ok]).max() < 1e-6
+
+
+@pytest.mark.parametrize("n", [2, 4, 6, 9])
+def test_combine_top2_equals_combine_ssds(n):
+    """Without ties among the biased SSDs the two combines agree to float32
+    rounding: combine_top2 takes the total of the unbiased SSDs less the
+    dropped ones, whose cancellation costs a few ulps of the total, so the
+    bound is 4 float32 ulps of the total, scaled as the cost is."""
+    b, u, v, var = (tt(x) for x in _ssd_stacks(n, seed=30 + n))
+    top2 = tcost.combine_top2(b, u, v, var)
+    ssds = tcost.combine_ssds(b, u, v, var)
+    assert torch.equal(top2[1], ssds[1]) and torch.equal(top2[0] >= 1e30, ssds[0] >= 1e30)
+    ok = ssds[0] < 1e30
+    keep = torch.clamp(v.sum(0) - 2, min=1).to(torch.float32)
+    total = torch.where(v, u, 0.0).sum(0) / (keep * keep) / ssds[1].clamp(min=tcost.MIN_VAR)
+    bound = 4 * float(np.finfo(np.float32).eps) * total
+    assert ((top2[0] - ssds[0]).abs() <= bound)[ok].all()
+
+
+def test_combine_tie_rule():
+    """The tie rule: where the second-worst biased SSD ties with a kept one,
+    combine_top2 (and K2) drop the first index of the tie, combine_ssds (a
+    stable ascending sort, as the JAX package's) the last."""
+    biased = tt(np.array([3.0, 1.0, 1.0, 5.0], np.float32).reshape(4, 1, 1))  # 0 and 3 dropped by both
+    unbiased = tt(np.array([0.3, 0.1, 0.7, 0.5], np.float32).reshape(4, 1, 1))
+    valid = torch.ones(4, 1, 1, dtype=torch.bool)
+    var = torch.ones(1, 1)
+    # keep = 2: the sort keeps the two smallest (1 and 2, tied at 1.0) in either rule
+    assert torch.allclose(tcost.combine_ssds(biased, unbiased, valid, var)[0], torch.tensor([[0.8 / 4]]))
+    assert torch.allclose(tcost.combine_top2(biased, unbiased, valid, var)[0], torch.tensor([[0.8 / 4]]))
+    biased = tt(np.array([1.0, 3.0, 3.0, 5.0], np.float32).reshape(4, 1, 1))  # worst 3; 1 and 2 tie for second
+    ssds = tcost.combine_ssds(biased, unbiased, valid, var)[0]
+    top2 = tcost.combine_top2(biased, unbiased, valid, var)[0]
+    jc = np.asarray(jcost.combine_ssds(*(jnp.asarray(x.numpy()) for x in (biased, unbiased, valid, var)))[0])
+    assert torch.allclose(ssds, torch.tensor([[(0.3 + 0.1) / 4]])) and np.allclose(jc, (0.3 + 0.1) / 4)  # keeps 1
+    assert torch.allclose(top2, torch.tensor([[(0.3 + 0.7) / 4]]))  # keeps 2

@@ -146,6 +146,21 @@ def test_generate_foreground_masks_matches_jax(project):
         assert m.shape == (int(width) * 3 // 4, int(width)) and 0.02 < m.mean() < 0.5
 
 
+def test_generate_foreground_masks_above_the_input_width_matches_jax(project):
+    """--width 120 of the 80 px frames: both CLIs enlarge background and
+    frame with INTER_AREA (exact in the port) before the masks; the same
+    8-bit masks."""
+    root, rig, rig_path = project
+    _run_both("generate_foreground_masks", lambda out: [
+        "--rig", rig_path, "--background_color", imagetypes.image_dir(root, "background_color"),
+        "--color", imagetypes.image_dir(root, "color"), "--first", "000000", "--last", "000002",
+        "--width", "120", "--foreground_masks", os.path.join(root, out, "masks_120")])
+    names = _same_tree(os.path.join(root, "jax", "masks_120"), os.path.join(root, "torch", "masks_120"))
+    assert len(names) == 12
+    m = tio.read_mask(os.path.join(root, "torch", "masks_120", "cam0", "000001.png"))
+    assert m.shape == (90, 120) and 0.02 < m.mean() < 0.5
+
+
 def test_temporal_bilateral_filter_matches_jax(project, pyramids):
     """Three frames at level 0, the window read from disk, with and without
     foreground masks: atol 1e-6 on disparities ~0.2 (as the op's test)."""
@@ -162,26 +177,30 @@ def test_temporal_bilateral_filter_matches_jax(project, pyramids):
         assert len(names) == 12 and all(n.startswith("disparity_time_filtered_levels/level_0/") for n in names)
 
 
-@pytest.mark.parametrize("mode", ["plain", "color", "foreground"])
+@pytest.mark.parametrize("mode", ["plain", "color", "color_enlarged", "foreground"])
 def test_upsample_disparity_matches_jax(project, pyramids, mode):
     """Level 1 (56x42) to 80 px wide: Lanczos4 (plain, atol 5e-7 as the
     resize test), then the joint bilateral guided by the full-res color
-    (radius (80/56)^2 + 1 = 3; rtol 2e-6 as the solver's filter test), or
-    the foreground branch with masks at both levels and the background
-    disparity (copies only: identical)."""
+    (radius (80/56)^2 + 1 = 3; rtol 2e-6 as the solver's filter test) or by
+    level 1's 56x42 colors, which both CLIs enlarge with INTER_AREA (the
+    port's cv2 arithmetic, exact; the same 2e-6), or the foreground branch
+    with masks at both levels and the background disparity (copies only:
+    identical)."""
     root, rig, rig_path = project
     levels = imagetypes.image_dir(os.path.join(root, "solve"), "disparity_levels")
     argv = ["--rig", rig_path, "--disparity", os.path.join(levels, "level_1"), "--resolution", "80",
             "--first", "000000", "--last", "000001", "--output_formats", "pfm,exr"]
     if mode == "color":
         argv += ["--color", imagetypes.image_dir(root, "color")]
+    if mode == "color_enlarged":
+        argv += ["--color", os.path.join(root, "jax", "color_levels", "level_1")]
     if mode == "foreground":
         masks = os.path.join(root, "jax", "mask_levels")
         argv += ["--foreground_masks_in", os.path.join(masks, "level_1"),
                  "--foreground_masks_out", os.path.join(masks, "level_0"),
                  "--background_disp", imagetypes.image_dir(root, "background_disp")]
     _run_both("upsample_disparity", lambda out: argv + ["--output", os.path.join(root, out, f"up_{mode}")])
-    atol = {"plain": 5e-7, "color": 2e-6, "foreground": 0.0}[mode]
+    atol = {"plain": 5e-7, "color": 2e-6, "color_enlarged": 2e-6, "foreground": 0.0}[mode]
     names = _same_tree(os.path.join(root, "jax", f"up_{mode}"), os.path.join(root, "torch", f"up_{mode}"), atol=atol)
     assert len(names) == 16
     up = tio.read_disparity(os.path.join(root, "torch", f"up_{mode}", "cam2", "000001.pfm"))

@@ -96,6 +96,28 @@ def test_detect_corners(scene, corners, i):
     np.testing.assert_allclose(got.score, want.score, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("i,hw", [(0, (120, 160)), (1, (120, 160)), (2, (111, 151)), (3, (97, 133))])
+def test_detect_corners_fov_mask(scene, i, hw):
+    """``fov_mask`` as the JAX package applies it: at each octave the mask,
+    as uint8, is area-resized to the response (by 2 or by a non-integer
+    factor on odd sizes) and the response is -inf outside it. Same corners,
+    all inside the mask."""
+    _, _, grays, _ = scene
+    h, w = hw
+    img = framed(grays[i][:h, :w])
+    ys, xs = np.mgrid[0:h, 0:w]
+    mask = (xs - 0.45 * w) ** 2 + (ys - 0.55 * h) ** 2 < (0.4 * h) ** 2
+    want = jf.detect_corners(img, max_corners=MAX_CORNERS, octaves=2, fov_mask=mask)
+    got = tf.detect_corners(torch.from_numpy(img), max_corners=MAX_CORNERS, octaves=2, fov_mask=torch.from_numpy(mask))
+    assert len(got.xy) == len(want.xy) > 10
+    np.testing.assert_allclose(got.xy, want.xy, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.score, want.score, rtol=1e-6, atol=0)
+    inside = mask[np.clip(got.xy[:, 1].astype(int), 0, h - 1), np.clip(got.xy[:, 0].astype(int), 0, w - 1)]
+    assert inside.mean() > 0.9
+    unmasked = tf.detect_corners(img, max_corners=MAX_CORNERS, octaves=2)
+    assert len(unmasked.xy) > len(got.xy)
+
+
 def test_detect_corners_finds_checker():
     img = np.zeros((64, 64), np.float32)
     img[16:48, 16:48] = 1.0  # a bright square: 4 strong corners

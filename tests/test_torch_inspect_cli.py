@@ -367,6 +367,33 @@ def test_view_thresholds_match_jax(tree, tmp_path):
             assert_same_file(want, got, png_lsb=1, count_image=name.startswith("masks/"))
 
 
+def test_view_thresholds_above_the_image_width_match_jax(tree, tmp_path):
+    """--width 128 of the 64 px images: both tools enlarge with INTER_AREA
+    (exact in the port), then the same visualizations and sweeps, held
+    as in the test above."""
+    p = _paths(tree)
+    img0 = os.path.join(p["color"], "cam0", "000000.png")
+    img1 = os.path.join(p["color"], "cam1", "000000.png")
+    run_both("view_thresholds", lambda s: [
+        "color_variance", "--fullsize_image", img0, "--width", "128", "--steps", "2",
+        "--output_dir", str(tmp_path / s / "var")], str(tmp_path))
+    run_both("view_thresholds", lambda s: [
+        "foreground_masks", "--fullsize_bg_image", img0, "--fullsize_fg_image", img1, "--width", "128",
+        "--steps", "1", "--blur_radius_max", "3", "--morph_closing_size_max", "4",
+        "--output_dir", str(tmp_path / s / "masks")], str(tmp_path))
+    names = files(str(tmp_path / "jax"))
+    assert names == files(str(tmp_path / "torch"))
+    for name in names:
+        want, got = str(tmp_path / "jax" / name), str(tmp_path / "torch" / name)
+        if name.endswith(".json"):
+            with open(want) as f, open(got) as g:
+                np.testing.assert_allclose(_numbers(json.load(g)), _numbers(json.load(f)), rtol=1e-4, atol=1e-7,
+                                           err_msg=name)
+        else:
+            assert_same_file(want, got, png_lsb=1, count_image=name.startswith("masks/"))
+            assert tio.read_png(got).shape[1] == 128, name
+
+
 def _numbers(obj):
     if isinstance(obj, dict):
         return [x for k in sorted(obj) for x in _numbers(obj[k])]

@@ -50,12 +50,14 @@ def test_png_codec_against_cv2(tmp_path, dtype, channels):
 
 
 def test_png_unsupported_kinds_raise():
+    """Palette, 1/2/4-bit and Adam7 files decode (tests/test_torch_png.py);
+    bit depths and interlace methods that the PNG spec forbids raise."""
     import struct
 
-    for depth, ctype, interlace in ((8, 3, 0), (1, 0, 0), (8, 2, 1)):  # palette, 1-bit, interlaced
+    for depth, ctype, interlace in ((16, 3, 0), (3, 0, 0), (8, 2, 2)):  # 16-bit palette, 3-bit gray, interlace 2
         ihdr = struct.pack(">IIBBBBB", 2, 2, depth, ctype, 0, 0, interlace)
         data = png._SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IEND", b"")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             png.decode(data)
     with pytest.raises(TypeError):
         png.encode(np.zeros((4, 4), np.float32))
@@ -182,13 +184,19 @@ def test_resize_image_area_integer_factors_matches_jax(src_hw, dst_wh, channels)
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("size_wh,mode,dtype", [((40, 30), "cubic", np.float32), ((40, 30), "linear", np.float32),
-                                                ((160, 120), "area", np.float32), ((40, 30), "area", np.uint8),
-                                                ((40, 30), "lanczos", np.uint16)])
+@pytest.mark.parametrize("size_wh,mode,dtype", [((40, 30), "cubic", np.int32), ((40, 30), "linear", np.float16),
+                                                ((160, 120), "area", np.bool_), ((40, 30), "area", np.int8),
+                                                ((40, 30), "lanczos", np.uint32)])
 def test_resize_image_other_cases_raise(size_wh, mode, dtype):
+    """Every mode of every depth that cv2.resize interpolates is ported; a
+    depth that cv2 rejects raises in both, and so does an unknown mode."""
     img = np.zeros((60, 80, 3), dtype)
-    with pytest.raises(NotImplementedError, match=f"{mode!r}.*80x60 to {size_wh[0]}x{size_wh[1]}"):
+    with pytest.raises(cv2.error):
+        jio.resize_image(img, size_wh, mode)
+    with pytest.raises(TypeError, match=f"{np.dtype(dtype)}.*{mode!r}"):
         io.resize_image(img, size_wh, mode)
+    with pytest.raises(ValueError, match="unknown interpolation"):
+        io.resize_image(img.astype(np.float32), size_wh, mode + "_exact")
 
 
 def _pyramid_sizes(w0, h0):

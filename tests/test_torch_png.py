@@ -3,7 +3,10 @@ reconstruction runs in native code (stream/_native/png_unfilter.cpp): every
 filter type at 8 and 16 bits with 1-4 channels decodes to the source; the
 native rows equal the per-byte loop of PNG spec 9.2 kept here as the oracle;
 files written by PIL and by OpenCV (Paeth, Average, adaptive) decode as
-``cv2.imread`` reads them. Tolerance: exact."""
+``cv2.imread`` reads them; hand-built palette, 1/2/4-bit, Adam7 and tRNS
+files read through io.read_color and io.read_mask as the JAX package's
+readers (cv2's IMREAD_UNCHANGED and IMREAD_GRAYSCALE) read them.
+Tolerance: exact."""
 
 import struct
 import zlib
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from facebook360_dep_tpu.core import io as jio
 from facebook360_dep_tpu_torch.core import io, png
 
 import torch_parity  # noqa: F401  (thread count)
@@ -147,3 +151,103 @@ def test_pil_written_files_read_as_cv2_reads_them(tmp_path, mode, channels, dtyp
     np.testing.assert_array_equal(got, img)
     if channels != 2:  # cv2 reads gray+alpha as BGRA
         np.testing.assert_array_equal(_bgr(got), cv2.imread(p, cv2.IMREAD_UNCHANGED))
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, stride) unfiltered row bytes at ``depth``
+    bits (big-endian at 16, MSB first below 8, rows padded to a byte)."""
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1).astype(np.int64)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    stride = -(-flat.shape[1] // per)
+    padded = np.zeros((h, stride * per), np.int64)
+    padded[:, :flat.shape[1]] = flat
+    shifts = 8 - depth * (np.arange(per) + 1)
+    return (padded.reshape(h, stride, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _build_png(samples, depth, ctype, interlace=0, plte=None, trns=None, seed=0) -> bytes:
+    """A PNG of ``samples`` (h, w, c) with a random filter type on each row
+    (of each Adam7 pass when ``interlace``)."""
+    rng = np.random.RandomState(seed)
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    passes = png._ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            rows = _pack(sub, depth)
+            raw += filter_rows(rows, rng.randint(0, 5, rows.shape[0]), bpp).tobytes()
+    out = png._SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        out += png._chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += png._chunk(b"tRNS", trns)
+    return out + png._chunk(b"IDAT", zlib.compress(raw)) + png._chunk(b"IEND", b"")
+
+
+def _reads_as_jax(tmp_path, data: bytes) -> np.ndarray:
+    """io.read_color and io.read_mask of the file equal the JAX readers'."""
+    p = str(tmp_path / "h.png")
+    with open(p, "wb") as f:
+        f.write(data)
+    got, want = io.read_color(p), jio.read_color(p)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(io.read_mask(p), jio.read_mask(p))
+    return got
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("with_trns", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_palette_png_reads_as_jax(tmp_path, depth, with_trns, interlace):
+    """Palette -> RGB, or RGBA where tRNS gives alpha (255 past its end)."""
+    rng = np.random.RandomState(depth + 10 * interlace)
+    entries = min(1 << depth, 40)
+    plte = rng.randint(0, 256, (entries, 3))
+    plte[0], plte[1] = (255, 0, 0), (0, 0, 255)  # luminance 76 and 29 for read_mask
+    idx = rng.randint(0, entries, (9, 13, 1))
+    trns = bytes([0, 128, 255][:entries]) if with_trns else None
+    got = _reads_as_jax(tmp_path, _build_png(idx, depth, 3, interlace, plte.reshape(-1), trns, seed=depth))
+    assert got.shape[-1] == (4 if with_trns else 3)
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_low_bit_gray_png_reads_as_jax(tmp_path, depth, interlace):
+    """Gray at 1, 2 and 4 bits scales by 255 / (2^d - 1)."""
+    samples = np.random.RandomState(depth).randint(0, 1 << depth, (11, 21, 1))
+    got = _reads_as_jax(tmp_path, _build_png(samples, depth, 0, interlace, seed=depth))
+    assert set(np.unique(got * 255).round().astype(int)) <= set(range(0, 256, 255 // ((1 << depth) - 1)))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (9, 9), (33, 17)])
+@pytest.mark.parametrize("ctype", [0, 2, 4, 6])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_adam7_png_reads_as_jax(tmp_path, depth, ctype, hw):
+    """Each pass unfiltered alone, then scattered; images smaller than a pass
+    step have empty passes."""
+    samples = np.random.RandomState(hw[0] + ctype).randint(0, 1 << depth, hw + (png._CHANNELS[ctype],))
+    _reads_as_jax(tmp_path, _build_png(samples, depth, ctype, 1, seed=ctype))
+    assert np.array_equal(png.decode(_build_png(samples, depth, ctype, 1, seed=ctype)), samples)
+
+
+@pytest.mark.parametrize("ctype", [0, 2])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_trns_key_png_reads_as_jax(tmp_path, depth, ctype):
+    """A tRNS key on RGB adds alpha (0 on the key, the maximum elsewhere); on
+    gray libpng drops it, so the image stays gray."""
+    c = png._CHANNELS[ctype]
+    samples = np.random.RandomState(depth + ctype).randint(0, 3, (6, 7, c))
+    key = struct.pack(">HHH", 1, 2, 0) if ctype == 2 else struct.pack(">H", 2)
+    samples[0, 0] = (1, 2, 0)[:c]
+    got = _reads_as_jax(tmp_path, _build_png(samples, depth, ctype, trns=key, seed=depth))
+    assert got.shape[-1] == (4 if ctype == 2 else 3)
+    if ctype == 2:
+        assert got[0, 0, 3] == 0 and got[..., 3].max() == 1.0

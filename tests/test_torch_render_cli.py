@@ -71,6 +71,23 @@ def test_rephotography_cli_matches_jax(solved, tmp_path, caplog):
     assert sorted(result["frames"]["000000"]["cameras"]) == ["cam0", "cam1", "cam2", "cam3"]
 
 
+def test_rephotography_cli_enlarges_colors_matches_jax(solved, tmp_path, caplog):
+    """Level-1 colors (32x24) against the level-0 disparities (64x48): both
+    CLIs enlarge the colors with INTER_AREA (the port's cv2 arithmetic,
+    exact) and score within the 0.5 pp of the test above."""
+    argv = ["--color", os.path.join(solved["root"], "video/color_levels/level_1"), "--disparity",
+            solved["disparity"], "--rig", solved["rig"], "--first", "000000", "--last", "000000"]
+    with caplog.at_level(logging.INFO):
+        result = tcre.main(argv + ["--output", str(tmp_path / "t")], device="cpu")
+    port = _total_mssim(caplog.records)
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        jcre.main(argv + ["--output", str(tmp_path / "j")])
+    ref = _total_mssim(caplog.records)
+    assert 50.0 < port <= 100.0 and np.isfinite(result["total"]).all()
+    assert abs(port - ref) < 0.5, (port, ref)
+
+
 @pytest.mark.parametrize("fmt", tsmr.FORMATS)
 def test_simple_mesh_renderer_matches_jax(solved, tmp_path, fmt):
     """Same file, shape and PNG type as the JAX CLI's; 8-bit colors (16-bit

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's PNG decode of a frame whose every row is Paeth-filtered.
 
-    python3 tools/time_torch_png_decode.py [--width 2048 --height 1536 --reps 5]
+    python3 tools/time_torch_png_decode.py [--width 2048 --height 1536 --depth 8 --reps 5]
 
-Writes a W x H 8-bit RGB PNG (smooth gradients plus noise) with filter type
+Writes a W x H 8- or 16-bit (``--depth``) RGB PNG (smooth gradients plus noise) with filter type
 4 (Paeth) on every row, then prints one JSON line: the median seconds of
 ``facebook360_dep_tpu_torch.core.png.decode`` over ``--reps`` runs (the
 first call, which may build the native library, is left out), the same for
@@ -48,10 +48,12 @@ def paeth_filter(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def paeth_png(img: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of ``img`` (H, W, 3) uint8 with every row Paeth-filtered."""
+    """An RGB PNG of ``img`` (H, W, 3) uint8 or uint16 with every row Paeth-filtered."""
     h, w, c = img.shape
-    filtered = paeth_filter(img.reshape(h, w * c), c)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    nbytes = img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">"))).view(np.uint8).reshape(h, -1)
+    filtered = paeth_filter(rows, c * nbytes)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * nbytes, 2, 0, 0, 0)
     return (png._SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
             + png._chunk(b"IEND", b""))
 
@@ -69,16 +71,18 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--width", type=int, default=2048)
     p.add_argument("--height", type=int, default=1536)
+    p.add_argument("--depth", type=int, default=8, choices=(8, 16))
     p.add_argument("--reps", type=int, default=5)
     args = p.parse_args()
     rng = np.random.RandomState(0)
     y, x = np.mgrid[0:args.height, 0:args.width]
     base = (np.sin(x / 50.0 + y / 70.0) * 0.4 + 0.5)[..., None] * np.array([255.0, 200.0, 150.0])
-    img = np.clip(base + rng.rand(args.height, args.width, 3) * 20, 0, 255).astype(np.uint8)
+    img = np.clip(base + rng.rand(args.height, args.width, 3) * 20, 0, 255)
+    img = (img * 257).astype(np.uint16) if args.depth == 16 else img.astype(np.uint8)
     data = paeth_png(img)
     decoded = png.decode(data)  # builds the native library on a fresh checkout
     result = dict(host=platform.processor() or platform.machine(), cpus=os.cpu_count(),
-                  shape=[args.height, args.width, 3], filter="paeth", decode_equals_source=bool(np.array_equal(decoded, img)),
+                  shape=[args.height, args.width, 3], depth=args.depth, filter="paeth", decode_equals_source=bool(np.array_equal(decoded, img)),
                   port_s=median_seconds(lambda: png.decode(data), args.reps))
     try:
         import cv2
