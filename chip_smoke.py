@@ -122,16 +122,18 @@
    process_level on all 16 destinations with the mismatch stage from level
    8 (level-0 error < 0.05), and frame 1's level 0 (the colors x 0.9 +
    0.05). Then 4 spawned ranks joined through gloo (NCCL takes one card a
-   rank), which only load the kernels step 2 built: (a) each solves its 4
-   destinations of the pyramid on the ("cam",) mesh, with the disparity
-   all-gather before the mismatch stage at levels 8..0, and gathers the
-   level-0 maps; (b) on the 2 x 2 ("frame", "cam") mesh each solves one
-   frame's 8 destinations at level 0, its init (a)'s level-1 maps
-   upsampled. (c) one NCCL rank in this process solves level 0 on the
-   camera mesh. Every rank's maps must equal the reference's bit for bit,
-   every rank must launch K1-K3 in (a) and K1 and K3 in (b) (level 0 runs
-   no K2); each rank prints its wall time, peak memory, launches and bytes
-   gathered, with the backend and the card's name and power limit;
+   rank), which only load the kernels step 2 built: (a) each builds the
+   context of its 4 destinations only (make_level_context(destinations=))
+   and solves them through the pyramid on the ("cam",) mesh, with the
+   disparity all-gather before the mismatch stage at levels 8..0, and
+   gathers the level-0 maps; (b) on the 2 x 2 ("frame", "cam") mesh each
+   builds its 8 destinations' level-0 context and solves one frame's, its
+   init (a)'s level-1 maps upsampled. (c) one NCCL rank in this process
+   solves level 0 on the camera mesh. Every rank's maps must equal the
+   reference's bit for bit, every rank must launch K1-K3 in (a) and K1 and
+   K3 in (b) (level 0 runs no K2); each rank prints its wall time, peak
+   memory (beside STEP14_PREDICTED_PEAK_GIB), launches and bytes gathered,
+   with the backend and the card's name and power limit;
 15. holds the port to the reference's oracles and runs the CLIs that
    enlarge images, on the card (tests/torch_oracle.py, the JAX-free copy of
    the CPU tests' oracles): (a) cost_for_disparity against the scalar
@@ -150,7 +152,20 @@
    where g++, pkg-config and opencv4 are on the host, the sphere scene of
    tests/test_ref_solver_oracle.py through the port's solver on the card
    against tools/ref_cpu_baseline.cpp --mini_solver with its bounds (else
-   one line says why it did not run). K1-K4 must all launch in it.
+   one line says why it did not run). K1-K4 must all launch in it;
+16. runs the TPU sampler's semantics (use_pallas_sampler=True, the JAX
+   package's Pallas path): (a) the anchor kernel (tile_windows), K1 in TPU
+   mode (C = 3 and the mismatch stage's C = 2) and K3 in TPU mode against
+   their twins at 256x192, 512x384 and 2048x1536 (step16_kernels' bounds),
+   each timed a launch and in a graph beside the default mode's kernel,
+   with the clipped share; (b) the sphere's ten-level 16-camera pyramid at
+   2048x1536 on TPU-semantics contexts with cost.auto_window's windows
+   (the mismatch stage from level 8): level-0 error < 0.05, the share of
+   level-0 pixels that differ from the default mode's maps, the clipped
+   share per level; every TPU-mode kernel and K2 launched, no default K1
+   or K3; (c) step 13b's production FTHETA shape the same way: the window
+   per level, the clipped share and the level-0 error inside the image
+   circles (< 0.05).
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -176,6 +191,18 @@ compared on one tree in one call.
 
 builds the kernels and runs step 14 alone, printed as one JSON object
 ``{"step14": ..., "phase_launches": ...}`` (no ``ok`` line).
+
+    python3 chip_smoke.py --step16
+
+builds the kernels and runs step 16 alone, printed as one JSON object
+``{"step16": ..., "kernel_table": ..., "phase_launches": ...}`` (no ``ok``
+line).
+
+    python3 chip_smoke.py --kernel-digests
+
+builds the kernels and prints the digests of the default-mode K1-K3
+outputs on step 3's inputs (``{"kernel_digests": ...}``): run with this
+script in another checkout, equal digests are equal bits.
 
     python3 chip_smoke.py --step15
 
@@ -268,10 +295,11 @@ def mixed_rig(resolution):
     return cam.Rig(cameras=cam.stack_cameras(cams), ids=tuple(ids), groups=("",) * NUM_CAMERAS)
 
 
-def level_inputs(width: int, dev):
+def level_inputs(width: int, dev, use_pallas_sampler: bool = False):
     """One level of the solve at a pyramid width, as the solver builds it
-    (all 16 cameras as destinations), noisy candidate maps for its 16
-    destinations, the ground truth and the FOV masks."""
+    (all 16 cameras as destinations; with the TPU sampler's stack under
+    ``use_pallas_sampler``), noisy candidate maps for its 16 destinations,
+    the ground truth and the FOV masks."""
     import torch
 
     from facebook360_dep_tpu_torch.core import camera as cam
@@ -283,7 +311,8 @@ def level_inputs(width: int, dev):
     colors, gt = synthetic.render_sphere_scene(rig, (width, h), radius=5.0, device=dev)
     nrig = cam.normalize_rig(rig)
     fov = pipeline.generate_fov_masks(nrig, (h, width), dev)
-    ctx = solver.make_level_context(nrig, nrig, colors, fov, full_height=1536)
+    tpu = dict(use_pallas_sampler=True) if use_pallas_sampler else {}  # a checkout before the TPU mode lacks it
+    ctx = solver.make_level_context(nrig, nrig, colors, fov, full_height=1536, **tpu)
     gen = torch.Generator(device=dev).manual_seed(0)
     noise = 1.0 + 0.05 * (2.0 * torch.rand((NUM_CAMERAS, h, width), generator=gen, device=dev) - 1.0)
     disp = (torch.nan_to_num(gt, nan=1e-4) * noise).contiguous()
@@ -1895,6 +1924,11 @@ STEP14_RANKS = 4
 STEP14_FRAMES = 2
 STEP14_MISMATCHES_START_LEVEL = 8
 STEP14_TIMEOUT_S = 600
+# Each rank's peak device memory predicted for (a), (b) and (c) when a rank
+# builds only its block's destination fields and keeps only its block's
+# draws (PERF.md section 6; a rank holding the whole level's context and
+# draws measured 6.42, 10.65 and 11.96 GiB)
+STEP14_PREDICTED_PEAK_GIB = dict(a=4.95, b=8.50, c=11.96)
 
 
 def free_port() -> int:
@@ -1905,14 +1939,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def sphere_pyramid(rig, widths, dev, solve, keep=(0, 1)):
+def sphere_pyramid(rig, widths, dev, solve, keep=(0, 1), destinations=None, use_pallas_sampler=False,
+                   config=None, sizes=None):
     """Step 14's pyramid loop, DepthEstimator's (depth/pipeline.py) without
     the files: from the coarsest level down, each level's context of the
     sphere colors rendered at that width and the upsampled init of the maps
     ``solve(ctx, cfg, init)`` returned one level up (its own maps: a rank's
     block, or all of them), the mismatch stage from level
-    STEP14_MISMATCHES_START_LEVEL. Returns ({level: its result} for
-    ``keep``, the finest level's context)."""
+    STEP14_MISMATCHES_START_LEVEL. ``destinations`` builds the context of
+    those destinations only (a rank's block: its masks, rays and colors
+    alone); ``use_pallas_sampler`` the TPU sampler's; ``config(level, ctx)``
+    replaces step14_config; ``sizes`` the (W, H) of each width. Returns
+    ({level: its result} for ``keep``, the finest level's context)."""
     import torch
 
     from facebook360_dep_tpu_torch.core import camera as cam
@@ -1920,15 +1958,19 @@ def sphere_pyramid(rig, widths, dev, solve, keep=(0, 1)):
     from facebook360_dep_tpu_torch.render import synthetic
 
     nrig = cam.normalize_rig(rig)
+    mine = nrig if destinations is None else nrig.subset(list(destinations))
+    sizes = sizes or [(w, height(w)) for w in widths]
     kept, maps, ctx = {}, None, None
     for level in reversed(range(len(widths))):
-        size = (widths[level], height(widths[level]))
+        size = sizes[level]
         ctx = None  # freed before the next level's is built
         colors, _ = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)
-        ctx = solver.make_level_context(nrig, nrig, colors, pipeline.generate_fov_masks(nrig, size[::-1], dev),
-                                        full_height=height(widths[0]))
+        ctx = solver.make_level_context(nrig, nrig, colors, pipeline.generate_fov_masks(mine, size[::-1], dev),
+                                        full_height=sizes[0][1], use_pallas_sampler=use_pallas_sampler,
+                                        destinations=destinations)
         init = None if maps is None else torch.stack([pipeline.upsample_disparity_init(m, size) for m in maps])
-        out = solve(ctx, step14_config(level, len(widths)), init)
+        cfg = step14_config(level, len(widths)) if config is None else config(level, ctx)
+        out = solve(ctx, cfg, init)
         maps = out["disparity"]
         if level in keep:
             kept[level] = out
@@ -1972,8 +2014,53 @@ def counting_gathers():
         sharding.all_gather = gather
 
 
+@contextlib.contextmanager
+def memory_marks(dev):
+    """Marks the device memory after each solver stage, each level
+    context built and each scene render: yields a list of (stage, GiB
+    allocated after it, the phase's peak GiB so far). The stage after
+    which the peak first reaches its final value is where it was reached."""
+    import torch
+
+    from facebook360_dep_tpu_torch.depth import solver
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    marks, saved = [], []
+    stages = [(solver, n) for n in ("make_level_context", "with_images", "draw_uniforms", "brute_force_all",
+                                    "random_proposals", "ping_pong", "handle_mismatches", "spatial_bilateral",
+                                    "median_filter")]
+    stages.append((synthetic, "render_sphere_scene"))
+    for module, name in stages:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def marked(*args, _fn=fn, _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            marks.append((_name, torch.cuda.memory_allocated(dev) / 2**30, torch.cuda.max_memory_allocated(dev) / 2**30))
+            return out
+
+        setattr(module, name, marked)
+    try:
+        yield marks
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _peak_at(marks, peak):
+    """The first mark whose running peak reached ``peak``, with the memory
+    allocated after the stage before it."""
+    for i, (name, _, running) in enumerate(marks):
+        if running >= peak - 1e-6:
+            return dict(stage=name, index=i, allocated_before_gib=marks[i - 1][1] if i else 0.0,
+                        allocated_after_gib=marks[i][1])
+    return None
+
+
 def _rank_phase(dev, fn):
-    """(seconds, peak device GiB, K1-K4 launches, gathered bytes, result) of ``fn()``."""
+    """(seconds, peak device GiB, K1-K4 launches, gathered bytes, the stage
+    where the peak was reached, result) of ``fn()``."""
     import torch
 
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
@@ -1981,13 +2068,14 @@ def _rank_phase(dev, fn):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     wc.reset_launch_counts()
-    with counting_gathers() as gathered:
+    with counting_gathers() as gathered, memory_marks(dev) as marks:
         t = time.time()
         result = fn()
         torch.cuda.synchronize(dev)
         seconds = time.time() - t
-    return dict(seconds=seconds, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, launches=dict(wc.LAUNCHES),
-                gathered_bytes=gathered[0]), result
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    return dict(seconds=seconds, peak_gib=peak, launches=dict(wc.LAUNCHES), gathered_bytes=gathered[0],
+                peak_at=_peak_at(marks, peak), stages=len(marks)), result
 
 
 def step14_rank(rank: int, coordinator: str, rig, widths, report_path: str) -> None:
@@ -2000,7 +2088,8 @@ def step14_rank(rank: int, coordinator: str, rig, widths, report_path: str) -> N
     import torch
     import torch.distributed as dist
 
-    from facebook360_dep_tpu_torch.depth import pipeline
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.depth import pipeline, solver
     from facebook360_dep_tpu_torch.parallel import multihost, sharding
 
     # the ranks share this host: gloo's pairs connect over the loopback
@@ -2014,21 +2103,33 @@ def step14_rank(rank: int, coordinator: str, rig, widths, report_path: str) -> N
     report = dict(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(), device=str(dev))
     n = len(rig.ids)
 
+    # each rank builds the context of its own block of destinations only
     mesh = sharding.camera_mesh()
     report["a"], (kept, ctx0) = _rank_phase(dev, lambda: sphere_pyramid(
-        rig, widths, dev, lambda ctx, cfg, init: sharding.process_level_sharded(ctx, cfg, mesh, init)))
+        rig, widths, dev, lambda ctx, cfg, init: sharding.process_level_sharded(ctx, cfg, mesh, init),
+        destinations=sharding.block(n, mesh, "cam")))
     report["a"]["destinations"] = list(kept[0]["destinations"])
     report["a"]["digests"] = map_digests(sharding.gather_result(kept[0], mesh))
     level1 = sharding.all_gather(kept[1]["disparity"], mesh, "cam")  # (a)'s level-1 maps, destination order
-    del kept
+    colors0 = ctx0.src_imgs
+    del kept, ctx0
 
     mesh2 = sharding.frame_camera_mesh(STEP14_FRAMES)
-    frames = torch.stack([ctx0.src_imgs, ctx0.src_imgs * 0.9 + 0.05])
-    mine, dsts = sharding.block(STEP14_FRAMES, mesh2, "frame"), sharding.block(n, mesh2, "cam")
+    frames = torch.stack([colors0, colors0 * 0.9 + 0.05])
+    del colors0
+    dsts = sharding.block(n, mesh2, "cam")
     size = (widths[0], height(widths[0]))
     init = torch.stack([pipeline.upsample_disparity_init(level1[d], size) for d in dsts])[None]
-    report["b"], out = _rank_phase(dev, lambda: sharding.process_frames_sharded(
-        ctx0, frames, step14_config(0, len(widths)), mesh2, init_disparity=init))
+    nrig = cam.normalize_rig(rig)
+
+    def frames_b():
+        base = solver.make_level_context(
+            nrig, nrig, frames[0], pipeline.generate_fov_masks(nrig.subset(list(dsts)), size[::-1], dev),
+            full_height=size[1], destinations=dsts)
+        return sharding.process_frames_sharded(base, frames, step14_config(0, len(widths)), mesh2,
+                                               init_disparity=init)
+
+    report["b"], out = _rank_phase(dev, frames_b)
     report["b"].update(frames=list(out["frames"]), destinations=list(out["destinations"]),
                        digests=map_digests(out, 0))
     multihost.shutdown()
@@ -2131,6 +2232,10 @@ def run_step14(tmp: str, dev, smi: str, widths=WIDTHS):
             raise AssertionError(f"step 14 rank {r['rank']} never launched {missing}")
     log(f"step 14 (a) camera mesh, (b) frame x camera mesh: {STEP14_RANKS} gloo ranks in {ranks_s:.2f} s "
         f"(spawn to exit); every rank's maps equal the single-process solve's bit for bit; {smi}")
+    for phase in ("a", "b"):
+        log(f"  step 14 ({phase}) peak a rank {max(r[phase]['peak_gib'] for r in reports):.2f} GiB, predicted "
+            f"{STEP14_PREDICTED_PEAK_GIB[phase]:.2f} GiB, reached in rank 0's {reports[0][phase]['peak_at']} of "
+            f"{reports[0][phase]['stages']} marked stages; {smi}")
 
     # (c) the production backend: one NCCL rank on the card
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -2147,7 +2252,8 @@ def run_step14(tmp: str, dev, smi: str, widths=WIDTHS):
         nccl_equal = map_digests(full) == want_a
     finally:
         multihost.shutdown()
-    log(f"  gathered {gathered[0]} B; equal to process_level: {nccl_equal}; launches {nccl_launches}")
+    log(f"  gathered {gathered[0]} B; equal to process_level: {nccl_equal}; launches {nccl_launches}; peak "
+        f"{nccl_peak:.2f} GiB, predicted {STEP14_PREDICTED_PEAK_GIB['c']:.2f} GiB; {smi}")
     if backend != "nccl" or not nccl_equal or min(nccl_launches[k] for k in ("project_sample", "cost_fused")) <= 0:
         raise AssertionError(f"step 14 (c): backend {backend}, equal {nccl_equal}, launches {nccl_launches}")
 
@@ -2162,6 +2268,312 @@ def run_step14(tmp: str, dev, smi: str, widths=WIDTHS):
     phases = {"step14a_ranks": [r["a"]["launches"] for r in reports],
               "step14b_ranks": [r["b"]["launches"] for r in reports], "step14c": nccl_launches}
     return metrics, phases
+
+
+# ---- step 16: the TPU sampler's semantics (use_pallas_sampler=True) ----
+
+STEP16_WIDTHS = (256, 512, 2048)  # K1 then K2 below 512x384, K3 from there up, and the finest level
+STEP16_CHECK_MAPS = 4  # destination maps the twins are checked on from 512x384 up (K1 samples all 16)
+
+
+def tile_windows_work(n, h, w, d):
+    """The anchor kernel: each map's disparity and rays read once, the
+    anchors written once; its operations, one projection of every pixel of
+    the tile-padded grid into every source."""
+    hp, wp = -(-h // 24) * 24, -(-w // 128) * 128
+    return d * 16 * h * w + n * PARAM_BYTES + d * n * (hp // 24) * (wp // 128) * 8, d * n * hp * wp * k1_flops(0)
+
+
+def _tpu_flags_share(clipped, valid, exclude=None):
+    """The share of visible (source, pixel) pairs that are clipped, the
+    destinations' own sources left out (``exclude``: each map's)."""
+    import torch
+
+    if exclude is not None:
+        lanes = torch.arange(clipped.shape[1], device=clipped.device)[None, :, None, None]
+        own = lanes == torch.as_tensor(exclude, device=clipped.device)[:, None, None, None]
+        clipped, valid = clipped & ~own, valid & ~own
+    seen = (clipped | valid).sum().item()
+    return clipped.sum().item() / max(seen, 1)
+
+
+def step16_kernels(dev, smi):
+    """Step 16 (a): the anchor kernel, K1 in TPU mode (C = 3 on the
+    quantized stack, C = 2 on the mismatch stage's planes) and K3 in TPU
+    mode against their twins at 256x192, 512x384 and 2048x1536 with the
+    default windows, on the kernels' own anchors (the twins' anchors beside:
+    >= 98% equal, else one alignment step apart); flags agree but for 1e-3
+    of the pairs, samples are bit-equal at >= 99.5% of those both call
+    valid (k/256 colors; C = 2 within 1e-6 relative) and K3's costs within
+    1e-4 relative at >= 99% of the pixels both evaluate (the card tests'
+    bounds). Each is timed as step 3 times its kernel, beside the default
+    mode's kernel on the same inputs. Returns the per-kernel results."""
+    import torch
+
+    from facebook360_dep_tpu_torch.depth import solver
+    from facebook360_dep_tpu_torch.ops import cost as cost_ops
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    names = ("tile_windows", "project_sample_tpu", "cost_fused_tpu")
+    results = {k: dict(max_abs_err=0.0, levels=[]) for k in names}
+    flt_max = cost_ops.FLT_MAX
+    log("step 16 (a): the TPU sampler's kernels against their twins, default windows (256 x 40):")
+    for width in STEP16_WIDTHS:
+        ctx, disp, gt, fov = level_inputs(width, dev, use_pallas_sampler=True)
+        cctx = solver.cost_context(ctx)
+        n, hs, ws, _ = ctx.src_tpu.shape
+        d, h, w = disp.shape
+        small = w * h < cost_ops.FUSED_MIN_PIXELS
+        k = d if small else STEP16_CHECK_MAPS
+        args = (ctx.src_params, ctx.dst_cams.position[:k], disp[:k], ctx.dst_rays[:k])
+        # anchors, plain and reflect-padded, against the twin's
+        for reflect in (False, True):
+            a_k = wc.tile_windows(*args, (hs, ws), reflect=reflect)
+            a_p = wc.tile_windows_plain(*args, (hs, ws), reflect=reflect)
+            same = (a_k == a_p).all(-1).double().mean().item()
+            far = ((a_k - a_p).abs() > torch.tensor([128, 8], device=dev)).any().item()
+            results["tile_windows"]["max_abs_err"] = max(results["tile_windows"]["max_abs_err"],
+                                                         float((a_k - a_p).abs().max().item()))
+            log(f"  anchors {w}x{h} ({'reflect' if reflect else 'edge'} padding, {k} maps): equal to the twin's at "
+                f"{same:.5f} of (tile, source) pairs")
+            if same < 0.98 or far:
+                raise AssertionError(f"tile_windows {w}x{h}: {same} equal, beyond one step {far}")
+        anchors = wc.tile_windows(*args, (hs, ws))
+        # K1 in TPU mode, C = 3
+        s_k, v_k, c_k = wc.project_sample_tpu(ctx.src_tpu, *args, anchors)
+        s_p, v_p, c_p = wc.project_sample_tpu_plain(wc.planar_view(ctx.src_tpu), *args, anchors)
+        torch.cuda.synchronize()
+        compare_validity(f"K1 TPU {w}x{h} valid", v_k, v_p, 1e-3)
+        compare_validity(f"K1 TPU {w}x{h} clipped", c_k, c_p, 1e-3)
+        both = (v_k & v_p)[:, :, None].expand_as(s_k)
+        exact = (s_k == s_p)[both].double().mean().item()
+        err1 = compare(f"K1 TPU {w}x{h} sampled (bit-equal at {exact:.5f})", s_k[both], s_p[both], 2.0 / 256.0, 0.0,
+                       0.0)
+        clip_share = _tpu_flags_share(c_k, v_k, cctx.exclude_idx[:k])
+        if exact < 0.995:
+            raise AssertionError(f"K1 TPU {w}x{h}: samples bit-equal at {exact}")
+        del s_k, s_p, both
+        # K1 in TPU mode, C = 2 (the mismatch stage's planes)
+        full = torch.where(fov, gt, float("nan"))
+        planes = torch.stack([torch.nan_to_num(full), torch.isfinite(full).float()], dim=1)
+        p_k, pv_k, pc_k = wc.project_sample_planes_tpu(planes, *args, anchors)
+        p_p, pv_p, pc_p = wc.project_sample_tpu_plain(planes, *args, anchors)
+        torch.cuda.synchronize()
+        compare_validity(f"K1 TPU C=2 {w}x{h} valid", pv_k, pv_p, 1e-3)
+        b2 = (pv_k & pv_p)[:, :, None].expand_as(p_k)
+        err_c2 = compare(f"K1 TPU C=2 {w}x{h} sampled", p_k[b2], p_p[b2], 1e-7, 1e-6, 5e-3)
+        del p_k, p_p, b2
+        # K3 in TPU mode, destination 3
+        one = (ctx.src_params, ctx.dst_cams.position[3], disp[3], ctx.dst_rays[3])
+        rest = (cctx.dst_planar[3], cctx.variance[3], cctx.exclude_idx[3])
+        a3 = wc.tile_windows(*one, (hs, ws), reflect=True)
+        c3_k, f3_k = wc.cost_fused_tpu(ctx.src_tpu, *one, *rest, a3)
+        c3_p, f3_p = wc.cost_fused_tpu_plain(wc.planar_view(ctx.src_tpu), *one, *rest, a3)
+        torch.cuda.synchronize()
+        compare_validity(f"K3 TPU {w}x{h} cost finite", c3_k < flt_max, c3_p < flt_max, 1e-2)
+        fin = (c3_k < flt_max) & (c3_p < flt_max)
+        err3 = compare(f"K3 TPU {w}x{h} cost", c3_k[fin], c3_p[fin], 0.0, 1e-4, 1e-2)
+        compare(f"K3 TPU {w}x{h} confidence", f3_k, f3_p, 0.0, 0.0, 1e-3)
+        log(f"  clipped share of visible (source, pixel) pairs at {w}x{h} ({k} maps): {clip_share:.6f}; {smi}")
+        # times, the default mode's kernel beside each
+        rows = dict(
+            tile_windows=level_row(f"anchors ({k} maps)", h, w, lambda: wc.tile_windows(*args, (hs, ws)),
+                                   tile_windows_work(n, h, w, k), 20, 20),
+            project_sample_tpu=level_row(f"K1 TPU ({k} maps)", h, w,
+                                         lambda: wc.project_sample_tpu(ctx.src_tpu, *args, anchors),
+                                         k1_work(n, 3, hs, ws, h, w, k), 20, 10),
+            cost_fused_tpu=level_row("K3 TPU", h, w, lambda: wc.cost_fused_tpu(ctx.src_tpu, *one, *rest, a3),
+                                     k3_work(n, hs, ws, h, w), 20, 10))
+        default = dict(
+            project_sample=level_row(f"  default K1 ({k} maps)", h, w,
+                                     lambda: wc.project_sample(ctx.src_rgba, *args), k1_work(n, 3, hs, ws, h, w, k),
+                                     20, 10),
+            cost_fused=level_row("  default K3", h, w, lambda: wc.cost_fused(ctx.src_rgba, *one, *rest),
+                                 k3_work(n, hs, ws, h, w), 20, 10))
+        for name, row in rows.items():
+            row.update(maps=1 if name == "cost_fused_tpu" else k, clipped_share=clip_share,
+                       default_ms=default["cost_fused" if name == "cost_fused_tpu" else "project_sample"]["ms"],
+                       default_graph_ms=default["cost_fused" if name == "cost_fused_tpu" else "project_sample"][
+                           "graph_ms"])
+            results[name]["levels"].append(row)
+        results["project_sample_tpu"]["max_abs_err"] = max(results["project_sample_tpu"]["max_abs_err"], err1,
+                                                           err_c2)
+        results["cost_fused_tpu"]["max_abs_err"] = max(results["cost_fused_tpu"]["max_abs_err"], err3)
+        if width == WIDTHS[0]:  # the twins at full width: the packed path's (anchors and K3) and K1's
+            results["tile_windows"]["plain_ms"] = cuda_time_ms(
+                lambda: wc.tile_windows_plain(*one, (hs, ws), reflect=True), 3, warmup=1)
+            results["cost_fused_tpu"]["plain_ms"] = cuda_time_ms(
+                lambda: wc.cost_fused_tpu_plain(wc.planar_view(ctx.src_tpu), *one, *rest, a3), 3, warmup=1)
+            results["project_sample_tpu"]["plain_ms"] = cuda_time_ms(
+                lambda: wc.project_sample_tpu_plain(wc.planar_view(ctx.src_tpu), *args, anchors), 3, warmup=1)
+            log(f"  plain twins at {w}x{h}: anchors (one map, reflect) {results['tile_windows']['plain_ms']:.3f} ms, "
+                f"K1 TPU ({k} maps) {results['project_sample_tpu']['plain_ms']:.3f} ms, K3 TPU "
+                f"{results['cost_fused_tpu']['plain_ms']:.3f} ms")
+        del ctx, cctx, args, one, rest, anchors, a3
+        torch.cuda.empty_cache()
+    for name, r in results.items():
+        top = r["levels"][-1]  # 2048x1536
+        r.update(shape=top["shape"], ms=top["ms"], graph_ms=top["graph_ms"], bound_ms=top["bound_ms"],
+                 bound_by=top["bound_by"], library_ms=None, library="none: no single PyTorch call computes it")
+    return results
+
+
+def default_kernel_digests(dev):
+    """SHA-256 of the default-mode K1 (C = 3, all 16 maps; C = 1), K2 and
+    K3 outputs on step 3's inputs at 256x192 and 2048x1536 (K1 there on 4
+    maps): run in two checkouts, equal digests are equal bits."""
+    import hashlib
+
+    import torch
+
+    from facebook360_dep_tpu_torch.depth import solver
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    out = {}
+    for width in (256, 2048):
+        ctx, disp, gt, fov = level_inputs(width, dev)
+        cctx = solver.cost_context(ctx)
+        k = 16 if width == 256 else 4
+        args = (ctx.src_params, ctx.dst_cams.position[:k], disp[:k], ctx.dst_rays[:k])
+        s3, v3 = wc.project_sample(ctx.src_rgba, *args)
+        s1, v1 = wc.project_sample_planes(torch.where(fov, gt, float("nan"))[:, None].contiguous(), *args)
+        one = (ctx.src_params, ctx.dst_cams.position[3], disp[3], ctx.dst_rays[3])
+        rest = (cctx.dst_planar[3], cctx.variance[3], cctx.exclude_idx[3])
+        c2 = wc.ssd_combine(s3[3], v3[3], *rest)
+        c3 = wc.cost_fused(ctx.src_rgba, *one, *rest)
+        for name, ts in (("k1_c3", (s3, v3)), ("k1_c1", (s1, v1)), ("k2", c2), ("k3", c3)):
+            h = hashlib.sha256()
+            for t in ts:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            out[f"{name}_{width}"] = h.hexdigest()
+        del ctx, cctx, s3, v3, s1, v1
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tpu_config(level, ctx, num_levels, windows):
+    """step14_config with the TPU sampler's window of the level:
+    cost.auto_window's, kept only where it exceeds the defaults (the JAX
+    pipeline's rule, depth/pipeline.py:390-401); recorded in ``windows``."""
+    from facebook360_dep_tpu_torch.depth import solver
+    from facebook360_dep_tpu_torch.ops import cost as cost_ops
+
+    h, w = ctx.src_imgs.shape[1:3]
+    ww, wh = cost_ops.auto_window(ctx.src_cams, ctx.dst_cams, (h, w), min_depth=1.0, max_depth=100.0)
+    windows[level] = (ww, wh)
+    return solver.SolverConfig(min_depth=1.0, max_depth=100.0, mismatches_start_level=STEP14_MISMATCHES_START_LEVEL,
+                               level=level, num_levels=num_levels, ww_max=None if ww <= 256 else ww,
+                               wh_max=None if wh <= 40 else wh)
+
+
+def _tpu_pyramid(name, rig, dev, smi, sizes):
+    """The TPU-semantics pyramid of ``rig``'s sphere scene (all 16
+    destinations, the mismatch stage from level STEP14_MISMATCHES_START_LEVEL),
+    its launches counted from zero; then the clipped share of each level's
+    final maps (launches not counted). Returns (level-0 result, launches,
+    windows, clipped share by level, seconds)."""
+    import torch
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.depth import pipeline, solver
+    from facebook360_dep_tpu_torch.ops import cost as cost_ops
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    windows = {}
+    levels = list(range(len(sizes)))
+    t = _phase_start()
+    kept, _ = sphere_pyramid(rig, [s[0] for s in sizes], dev, lambda ctx, cfg, init: solver.process_level(ctx, cfg, init),
+                             keep=levels, use_pallas_sampler=True, sizes=sizes,
+                             config=lambda level, ctx: _tpu_config(level, ctx, len(sizes), windows))
+    seconds, launches = _phase_end(f"step 16 {name}: the TPU-semantics pyramid in one process", t, smi)
+    nrig = cam.normalize_rig(rig)
+    params = wc.pack_camera_params(nrig.cameras.to(dev, torch.float32))
+    exclude = list(cam.map_src_to_dst_indexes(nrig, nrig))
+    clipped = {}
+    for level in levels:
+        maps = kept[level]["disparity"]
+        n, h, w = maps.shape
+        ww, wh = windows[level]
+        window = (None if ww <= 256 else ww, None if wh <= 40 else wh)
+        fov = pipeline.generate_fov_masks(nrig, (h, w), dev)
+        rays = cost_ops.dst_ray_dirs(nrig.cameras.to(dev, torch.float32), h, w)
+        rays = torch.where(fov[..., None], rays, float("nan")).permute(0, 3, 1, 2).contiguous()
+        stack = torch.zeros((n, 1, h, w), device=dev)  # the flags do not depend on the colors
+        seen = clip = 0
+        for i in range(n):
+            disp = torch.nan_to_num(maps[i], nan=0.0).contiguous()  # masked pixels sample nothing (disparity 0)
+            one = (params, nrig.cameras.position[i].to(dev, torch.float32), disp, rays[i])
+            _, v, c = wc.project_sample_planes_tpu(stack, *one, wc.tile_windows(*one, (h, w), window), window)
+            v[exclude[i]] = c[exclude[i]] = False
+            seen += (v | c).sum().item()
+            clip += c.sum().item()
+        clipped[level] = clip / max(seen, 1)
+        log(f"  level {level} ({w}x{h}): window {ww}x{wh} (auto_window; solved with "
+            f"{window[0] or 256}x{window[1] or 40}), clipped share of the final maps' visible pairs {clipped[level]:.6f}")
+    return kept[0], launches, windows, clipped, seconds
+
+
+def run_step16(dev, smi):
+    """Step 16: the TPU sampler's semantics. (a) step16_kernels; (b) the
+    sphere's ten-level 16-camera 2K pyramid on use_pallas_sampler contexts
+    with auto_window's windows: the level-0 median relative error (bar
+    LEVEL0_BAR), the share of level-0 pixels whose maps differ from the
+    default mode's and the clipped share per level, every TPU kernel (and
+    K2) launched and no default-mode K1 or K3; (c) the production FTHETA
+    shape (step 13b's rig): the window per level, the clipped share and the
+    level-0 error inside the image circles (bar LEVEL0_BAR). Returns
+    (metrics, the kernel results, launches by phase)."""
+    import torch
+
+    from facebook360_dep_tpu_torch.core import camera as cam
+    from facebook360_dep_tpu_torch.depth import pipeline, solver
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    t = time.time()
+    checks = step16_kernels(dev, smi)
+    kernels_s = time.time() - t
+
+    rig = synthetic.make_test_rig(NUM_CAMERAS, (WIDTHS[0], height(WIDTHS[0])), ring_radius=0.3)
+    sizes = [(w, height(w)) for w in WIDTHS]
+    t = _phase_start()
+    ref, _ = sphere_pyramid(rig, WIDTHS, dev, lambda ctx, cfg, init: solver.process_level(ctx, cfg, init), keep=(0,))
+    default_s, _ = _phase_end("step 16 (b): the default-mode pyramid (the reference for the differing share)", t, smi)
+    tpu0, launches, windows, clipped, tpu_s = _tpu_pyramid("(b) sphere", rig, dev, smi, sizes)
+    want = ("tile_windows", "project_sample_tpu", "ssd_combine", "cost_fused_tpu")
+    if min(launches[k] for k in want) <= 0 or launches["project_sample"] or launches["cost_fused"]:
+        raise AssertionError(f"step 16 (b): launches {launches}")
+    _, gt0 = synthetic.render_sphere_scene(rig, sizes[0], radius=5.0, device=dev)
+    a, b = tpu0["disparity"], ref[0]["disparity"]
+    med, _ = relative_error(a.cpu().numpy(), gt0.cpu().numpy())
+    differ = (a.view(torch.int32) != b.view(torch.int32)).double().mean().item()
+    apart = ((a - b).abs() > 0.01 * b.abs()).double().mean().item()  # NaN on either side counts as not apart
+    log(f"  level 0 (TPU semantics): median relative disparity error {med:.5f} (bar {LEVEL0_BAR}); the default "
+        f"mode's {relative_error(b.cpu().numpy(), gt0.cpu().numpy())[0]:.5f}; maps differ from the default mode's "
+        f"at {differ:.5f} of the pixels, by more than 1% at {apart:.5f}; launches {launches}; {smi}")
+    if not med < LEVEL0_BAR:
+        raise AssertionError(f"step 16 (b): level-0 median relative error {med}")
+    del ref, tpu0, a, b
+
+    frig = synthetic.make_ftheta_ring_rig(15, ring_radius=0.33, resolution=FTHETA_RESOLUTION,
+                                          distortion=synthetic.PRODUCTION_FTHETA_DISTORTION)
+    fsizes = [(w, int(round(w * FTHETA_RESOLUTION[1] / FTHETA_RESOLUTION[0]))) for w in WIDTHS]
+    f0, f_launches, f_windows, f_clipped, f_s = _tpu_pyramid("(c) production FTHETA shape", frig, dev, smi, fsizes)
+    _, ftruth = synthetic.render_sphere_scene(frig, fsizes[0], radius=5.0, device=dev)
+    circles = pipeline.generate_fov_masks(cam.normalize_rig(frig), fsizes[0][::-1], "cpu").numpy()
+    f_med, f_cov, f_rmse = level0_error_in(f0["disparity"].cpu().numpy(), ftruth.cpu().numpy(), circles,
+                                           "step 16 (c) FTHETA level 0 (TPU semantics) inside the image circles")
+    if min(f_launches[k] for k in want) <= 0:
+        raise AssertionError(f"step 16 (c): launches {f_launches}")
+    metrics = dict(step16_kernels_s=kernels_s, step16_default_pyramid_s=default_s, step16_tpu_pyramid_s=tpu_s,
+                   step16_level0_median_rel_err=med, step16_level0_differing_share=differ,
+                   step16_level0_share_apart_1pct=apart,
+                   step16_windows={str(k): v for k, v in windows.items()},
+                   step16_clipped_share={str(k): v for k, v in clipped.items()},
+                   step16_ftheta_s=f_s, step16_ftheta_level0_median_rel_err=f_med,
+                   step16_ftheta_level0_circle_coverage=f_cov, step16_ftheta_level0_covered_rel_rmse=f_rmse,
+                   step16_ftheta_windows={str(k): v for k, v in f_windows.items()},
+                   step16_ftheta_clipped_share={str(k): v for k, v in f_clipped.items()})
+    return metrics, checks, dict(sphere=launches, ftheta=f_launches)
 
 
 def _oracle_module():
@@ -2362,7 +2774,7 @@ def run_step15(tmp: str, root: str, out_root: str, full_mssim: float, dev, smi: 
     m, launches_c = step15_reference_solver(tmp, oracle, dev, smi)
     metrics.update(m)
     launches = {k: sum(part.get(k, 0) for part in (launches_a, launches_b, launches_c)) for k in wc.LAUNCHES}
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ("project_sample", "ssd_combine", "cost_fused", "warp_sample") if launches[k] <= 0]
     _require(not missing, f"kernels never launched in step 15: {missing}")
     log(f"  step 15 launches: {launches}")
     return metrics, launches
@@ -2413,6 +2825,12 @@ def main(argv=None) -> int:
                         help="build K1-K4, run the K1-K3 checks and per-level times (step 3), print them and stop")
     parser.add_argument("--step14", action="store_true",
                         help="build the kernels, run the multi-GPU path (step 14) alone, print its JSON and stop")
+    parser.add_argument("--step16", action="store_true",
+                        help="build the kernels, run the TPU sampler's semantics (step 16) alone, print its JSON and "
+                             "stop")
+    parser.add_argument("--kernel-digests", action="store_true",
+                        help="build the kernels, print the digests of the default-mode K1-K3 outputs "
+                             "(default_kernel_digests) as one JSON line and stop")
     parser.add_argument("--step15", action="store_true",
                         help="build the kernels, write and solve the sphere tree (steps 4-5), run the parity and "
                              "oracle checks (step 15) on it, print its JSON and stop")
@@ -2469,6 +2887,18 @@ def main(argv=None) -> int:
             step14, phases = run_step14(tmp, dev, smi)
         log(smi)
         log(json.dumps({"step14": step14, "phase_launches": phases}))
+        return 0
+
+    if args.kernel_digests:  # two checkouts' default kernels, compared by their digests
+        log(json.dumps({"kernel_digests": default_kernel_digests(dev)}))
+        return 0
+
+    if args.step16:  # the TPU sampler's semantics alone: no ok line
+        t = time.time()
+        step16, step16_checks, phases = run_step16(dev, smi)
+        log(f"TPU sampler's semantics (step 16): {time.time() - t:.1f} s; {smi}")
+        log(smi)
+        log(json.dumps({"step16": step16, "kernel_table": step16_checks, "phase_launches": phases}))
         return 0
 
     if args.step15:  # steps 4-5 and 15 alone: no kernels or ok line
@@ -2543,10 +2973,15 @@ def main(argv=None) -> int:
                                              dev, smi)
         log(f"parity and oracles (step 15): {time.time() - t:.1f} s; {smi}")
 
+    t = time.time()
+    step16, step16_checks, step16_launches = run_step16(dev, smi)
+    log(f"TPU sampler's semantics (step 16): {time.time() - t:.1f} s; {smi}")
+    checks.update(step16_checks)
+
     log(json.dumps({"levels": {str(k): v for k, v in sorted(est.level_seconds.items())},
                     "derp_cli_s": total, "level0_median_rel_err": med,
                     "level0_coverage": coverage, "level0_covered_rel_rmse": rmse, **render, **publish, **chain,
-                    **calibration, **shoot, **step13, **step14, **step15}))
+                    **calibration, **shoot, **step13, **step14, **step15, **step16}))
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
@@ -2572,6 +3007,12 @@ def main(argv=None) -> int:
                 step14b_ranks=[r[name] for r in step14_launches["step14b_ranks"]],
                 step14c=step14_launches["step14c"][name], step15=step15_launches[name])
         kernels.append(entry)
+    # the TPU sampler's kernels: launches by step 16 (b), the sphere pyramid in TPU semantics
+    for name, src, line in (("tile_windows", "tile_windows.cu", 486), ("project_sample_tpu", "project_sample.cu", 902),
+                            ("cost_fused_tpu", "cost_fused.cu", 997)):
+        kernels.append(dict(name=name, route="cuda", source=f"{CSRC}/{src}", replaces=f"{WARP_PALLAS}:{line}",
+                            launches=step16_launches["sphere"][name], **checks[name],
+                            phase_launches=dict(step16_ftheta=step16_launches["ftheta"][name])))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

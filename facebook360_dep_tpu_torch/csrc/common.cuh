@@ -177,6 +177,52 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ plane, const
   return lerp4(plane[t.i00], plane[t.i01], plane[t.i10], plane[t.i11], t);
 }
 
+// ---- The TPU sampler's semantics (ops/warp_cuda.py, the TPU-mode twins) ----
+// A destination tile of V4_TILE_H x V4_TILE_W pixels samples each source
+// through a ww x wh window at an anchor (ox, oy) (tile_windows.cu); a
+// visible pixel outside its tile's window is clipped; coordinates local to
+// the window round to 1/256 px (warp_pallas.py:529-537, 772-775).
+constexpr int V4_TILE_H = 24;
+constexpr int V4_TILE_W = 128;
+
+// The sample coordinate of a valid projection: coords - 0.5 clamped to the
+// source (warp_pallas.py:456-462).
+__device__ __forceinline__ float tpu_coord(float c, int n) {
+  return fminf(fmaxf(c - 0.5f, 0.f), static_cast<float>(n - 1));
+}
+
+// The window test of (xt, yt) against the window at (ox, oy), and the taps
+// of the bilinear sample at the window-local coordinates rounded to 1/256
+// px (clamp-to-edge taps are what the window's edge padding holds).
+// Returns whether the point lies in the window.
+__device__ __forceinline__ bool tpu_taps(float xt, float yt, int ox, int oy, int ww, int wh, int hs, int ws,
+                                         Taps& t) {
+  const float fox = static_cast<float>(ox), foy = static_cast<float>(oy);
+  const bool in = xt >= fox && xt <= fox + static_cast<float>(ww - 1) && yt >= foy &&
+                  yt <= foy + static_cast<float>(wh - 1);
+  const float lx = rintf(fminf(fmaxf(xt - fox, 0.f), static_cast<float>(ww - 1)) * 256.f) * (1.f / 256.f);
+  const float ly = rintf(fminf(fmaxf(yt - foy, 0.f), static_cast<float>(wh - 1)) * 256.f) * (1.f / 256.f);
+  const float fx = floorf(lx), fy = floorf(ly);
+  t.wx = lx - fx;
+  t.wy = ly - fy;
+  const int x0 = ox + static_cast<int>(fx), y0 = oy + static_cast<int>(fy);
+  const int xa = min(x0, ws - 1), xb = min(x0 + 1, ws - 1);
+  const int ya = min(y0, hs - 1), yb = min(y0 + 1, hs - 1);
+  t.i00 = ya * ws + xa;
+  t.i01 = ya * ws + xb;
+  t.i10 = yb * ws + xa;
+  t.i11 = yb * ws + xb;
+  return in;
+}
+
+// The packed path's sample rounding (warp_pallas.py:625-636): R to 2^-24,
+// G and B clamped to [0, 1] then to 2^-16 with 65535 the top code.
+__device__ __forceinline__ float packed_r(float r) {
+  return rintf(fmaxf(r, 0.f) * 16777216.f) * (1.f / 16777216.f);
+}
+__device__ __forceinline__ float packed_gb(float g) {
+  return fminf(rintf(fminf(fmaxf(g, 0.f), 1.f) * 65536.f), 65535.f) * (1.f / 65536.f);
+}
 
 constexpr float MIN_VAR = static_cast<float>(1.0 / 12.0 / 65025.0);  // ops/cost.py
 constexpr int MIN_PATCH_SUPPORT = 5;

@@ -52,6 +52,16 @@
 // FMA) and 50 M 16-byte tap gathers. Of 1, 4 and 16 sources a thread, 4
 // lost least over a solve's launches: 1 reforms the world point 16 times a
 // pixel (0.189 ms at 256x192), 16 leaves 240 blocks at 50x38 (14.8 us).
+//
+// The TPU mode (template parameter TPU; the default instantiation is the
+// kernel above, unchanged) reproduces the Pallas sampler's semantics as the
+// JAX package runs them on its own chip: each pixel reads the window anchor
+// of its 24 x 128 tile and source (tile_windows.cu), a valid projection
+// outside that window is clipped (written to a third output, and not
+// valid), and the window-local coordinates round to 1/256 px before the
+// lerp (fdt::tpu_taps). On a stack quantized to k/256 every product and sum
+// of the lerp is exact, so the kernel, its twin and the Pallas kernel agree
+// to the bit wherever their projections do.
 #include "common.cuh"
 
 namespace {
@@ -59,13 +69,20 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int SOURCES_PER_THREAD = 4;
 
+// The TPU mode's inputs and its clipped flags (unused by the default mode).
+struct TpuArgs {
+  const int2* anchors;  // (d, n, nty, ntx) window origins
+  int w, ntx, nty, ww, wh;
+  uint8_t* clipped;  // (d, n, h, w)
+};
+
 // C = 3: src is the interleaved (n, hs, ws, 4) stack; C = 1, 2: (n, C, hs, ws) planes.
-template <int C>
+template <int C, bool TPU>
 __global__ void __launch_bounds__(THREADS)
 project_sample_kernel(const float* __restrict__ src, int n, int hs, int ws,
                       const float* __restrict__ params, const float* __restrict__ dst_pos,
                       const float* __restrict__ disparity, const float* __restrict__ rays, int hw,
-                      float* __restrict__ out, uint8_t* __restrict__ valid) {
+                      float* __restrict__ out, uint8_t* __restrict__ valid, TpuArgs tpu) {
   extern __shared__ float s_par[];  // [n][PARAM_SIZE]
   for (int i = threadIdx.x; i < n * fdt::PARAM_SIZE; i += THREADS) s_par[i] = params[i];
   __syncthreads();
@@ -85,14 +102,27 @@ project_sample_kernel(const float* __restrict__ src, int n, int hs, int ws,
   const int s_end = min(n, (static_cast<int>(blockIdx.y) + 1) * SOURCES_PER_THREAD);
   for (int s = blockIdx.y * SOURCES_PER_THREAD; s < s_end; ++s) {
     float cx, cy;
-    const bool ok = live && fdt::reproject_world(s_par + s * fdt::PARAM_SIZE, wx, wy, wz, d_ok, hs, ws, cx, cy);
+    bool ok = live && fdt::reproject_world(s_par + s * fdt::PARAM_SIZE, wx, wy, wz, d_ok, hs, ws, cx, cy);
     const size_t ds = static_cast<size_t>(d) * n + s;  // (destination, source)
+    fdt::Taps t;
+    if constexpr (TPU) {
+      bool clip = false;
+      if (ok) {
+        const int y = pix / tpu.w, x = pix % tpu.w;
+        const int2 o = tpu.anchors[(ds * tpu.nty + y / fdt::V4_TILE_H) * tpu.ntx + x / fdt::V4_TILE_W];
+        const bool in = fdt::tpu_taps(fdt::tpu_coord(cx, ws), fdt::tpu_coord(cy, hs), o.x, o.y, tpu.ww, tpu.wh,
+                                      hs, ws, t);
+        clip = !in;
+        ok = in;
+      }
+      tpu.clipped[ds * hw + pix] = clip;
+    }
     valid[ds * hw + pix] = ok;
     float v[C];
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) v[ch] = 0.f;
     if (ok) {
-      const fdt::Taps t = fdt::bilinear_taps(cx, cy, hs, ws);
+      if constexpr (!TPU) t = fdt::bilinear_taps(cx, cy, hs, ws);
       if constexpr (C == 3) {
         const float4* img = reinterpret_cast<const float4*>(src) + s * plane;
         const float4 a = __ldg(img + t.i00), b = __ldg(img + t.i01);
@@ -111,20 +141,20 @@ project_sample_kernel(const float* __restrict__ src, int n, int hs, int ws,
   }
 }
 
-template <int C>
+template <int C, bool TPU>
 cudaError_t launch(const float* src, int n, int hs, int ws, const float* params, const float* dst_pos,
                    const float* disparity, const float* rays, int d, int hw, float* out, uint8_t* valid,
-                   cudaStream_t stream) {
+                   TpuArgs tpu, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(n) * fdt::PARAM_SIZE * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(project_sample_kernel<C>,
+    const cudaError_t err = cudaFuncSetAttribute(project_sample_kernel<C, TPU>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((hw + THREADS - 1) / THREADS, (n + SOURCES_PER_THREAD - 1) / SOURCES_PER_THREAD, d);
-  project_sample_kernel<C><<<grid, THREADS, smem, stream>>>(src, n, hs, ws, params, dst_pos, disparity, rays,
-                                                           hw, out, valid);
+  project_sample_kernel<C, TPU><<<grid, THREADS, smem, stream>>>(src, n, hs, ws, params, dst_pos, disparity,
+                                                                rays, hw, out, valid, tpu);
   return cudaGetLastError();
 }
 
@@ -139,11 +169,34 @@ extern "C" int fdt_project_sample(const float* src, int n, int c, int hs, int ws
                                   float* out, uint8_t* valid, void* stream) {
   const int hw = h * w;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TpuArgs none{};
   cudaError_t err;
   switch (c) {
-    case 1: err = launch<1>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, st); break;
-    case 2: err = launch<2>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, st); break;
-    case 3: err = launch<3>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, st); break;
+    case 1: err = launch<1, false>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, none, st); break;
+    case 2: err = launch<2, false>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, none, st); break;
+    case 3: err = launch<3, false>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, none, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The TPU mode: as fdt_project_sample, with anchors (d, n, ceil(h/24),
+// ceil(w/128), 2) int32 and the window ww x wh -> out, valid and clipped
+// (d, n, h, w) bool.
+extern "C" int fdt_project_sample_tpu(const float* src, int n, int c, int hs, int ws,
+                                      const float* params, const float* dst_pos,
+                                      const float* disparity, const float* rays, int d, int h, int w,
+                                      const int* anchors, int ww, int wh, float* out, uint8_t* valid,
+                                      uint8_t* clipped, void* stream) {
+  const int hw = h * w;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TpuArgs tpu{reinterpret_cast<const int2*>(anchors), w, (w + fdt::V4_TILE_W - 1) / fdt::V4_TILE_W,
+                    (h + fdt::V4_TILE_H - 1) / fdt::V4_TILE_H, ww, wh, clipped};
+  cudaError_t err;
+  switch (c) {
+    case 1: err = launch<1, true>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, tpu, st); break;
+    case 2: err = launch<2, true>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, tpu, st); break;
+    case 3: err = launch<3, true>(src, n, hs, ws, params, dst_pos, disparity, rays, d, hw, out, valid, tpu, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

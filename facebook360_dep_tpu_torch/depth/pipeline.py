@@ -433,6 +433,12 @@ class DepthEstimator:
             if self.opts.use_foreground_masks:
                 fg = self.load_fg_masks(level, frame, self.rig_dst)
                 bg = self.load_bg_disp(level)
+            # The JAX package runs its windowed, quantized Pallas sampler on
+            # its own chip only (use_pallas_sampler there is "the backend is a
+            # TPU", pipeline.py:390), and the exact XLA path elsewhere. A
+            # card gathers natively, so the port keeps the exact path here;
+            # make_level_context(use_pallas_sampler=True) with
+            # SolverConfig(ww_max=, wh_max=) reproduces the TPU's maps.
             ctx = solver.make_level_context(
                 self.rig_src,
                 self.rig_dst,

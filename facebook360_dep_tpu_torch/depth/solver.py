@@ -15,6 +15,12 @@ where the CUDA kernels run, and the mismatch stage samples every map in one
 K1 launch. Each batched stage gives the bits of the same stage run on each
 destination alone. The bilateral and median filters still run one
 destination at a time.
+
+A context built with ``use_pallas_sampler=True`` carries the TPU sampler's
+stack, and every stage that samples the sources then runs the semantics of
+the JAX package's Pallas sampler (per-tile windows of
+``SolverConfig.ww_max`` x ``wh_max``, quantized sources and coordinates,
+the clip guard), as the JAX package runs on its own chip.
 """
 
 from __future__ import annotations
@@ -50,6 +56,15 @@ class LevelContext(NamedTuple):
     var_noise_floor: float  # level-scaled, a float32 value (PyramidLevel.h:232-236)
     var_high_thresh: float  # a float32 value
     dst_rays: torch.Tensor  # (D, 3, H, W) dst pixel ray dirs, NaN outside the FOV
+    # a rank's block of a level (make_level_context(destinations=)): the
+    # indices of the destinations it holds among the level's, and the level's
+    # whole dst2src; None for a context that is the whole level
+    dst_index: tuple | None = None
+    level_dst2src: tuple | None = None
+    # the TPU sampler's (N, H, W, 4) stack (make_level_context(use_pallas_sampler=True))
+    # and its windows' row alignment; None: the default semantics
+    src_tpu: torch.Tensor | None = None
+    tpu_align: int = 8
 
 
 class SolverConfig(NamedTuple):
@@ -65,6 +80,10 @@ class SolverConfig(NamedTuple):
     has_fg_masks: bool = False
     level: int = 0
     num_levels: int = 1
+    # the TPU sampler's window (cost.auto_window; None: its defaults), read
+    # only on a context built with use_pallas_sampler=True
+    ww_max: int | None = None
+    wh_max: int | None = None
     # drop the four long-range (+/-2, +/-2) diagonals of the PatchMatch star
     # (solver.py:76-85); False = the reference-shaped template
     star_axis_only: bool = False
@@ -84,13 +103,32 @@ def make_level_context(
     var_noise_floor=4e-5,
     var_high_thresh=1e-3,
     full_height=None,
+    use_pallas_sampler: bool | None = None,
+    destinations=None,
 ) -> LevelContext:
     """Build the device context on ``src_imgs``' device (computes per-src
-    variance; PyramidLevel.h:232-247)."""
+    variance; PyramidLevel.h:232-247).
+
+    ``use_pallas_sampler`` adds the TPU sampler's stack (the colors
+    quantized by cost.quantize_src when cost.SRC_QUANT_EXACT), so the solve
+    runs the JAX package's Pallas semantics; None or False keeps the exact
+    XLA path. ``destinations`` (indices into ``rig_dst``) builds the context
+    of those destinations only, as a rank of a sharded solve holds its block
+    (parallel/sharding.py): their cameras, rays, colors, variance and masks,
+    with dst2src into the full source list; the masks and background
+    disparity given may hold every destination of ``rig_dst`` or just
+    those."""
     src_imgs = src_imgs.to(torch.float32)
     dev = src_imgs.device
     n, h, w = src_imgs.shape[:3]
-    d = len(rig_dst.ids)
+    level_dst2src = tuple(int(i) for i in cam.map_src_to_dst_indexes(rig_src, rig_dst))
+    idx = list(range(len(level_dst2src))) if destinations is None else [int(i) for i in destinations]
+    d = len(idx)
+    block = destinations is not None
+
+    def own(x):  # the held destinations' rows of an input given for every destination
+        return x[idx] if block and x.shape[0] == len(level_dst2src) else x
+
     if dst_fg_masks is None:
         dst_fg_masks = torch.ones((d, h, w), dtype=torch.bool, device=dev)
     if dst_bg_disp is None:
@@ -102,58 +140,77 @@ def make_level_context(
 
     src_cams = rig_src.cameras.to(dev, torch.float32)
     dst_cams = rig_dst.cameras.to(dev, torch.float32)
-    dst_fov = dst_fov_masks.to(device=dev, dtype=torch.bool)
+    if block:
+        dst_cams = dst_cams.index(torch.tensor(idx, dtype=torch.long, device=dev))
+    dst_fov = own(dst_fov_masks).to(device=dev, dtype=torch.bool)
     # the dst unprojection is disparity-independent: hoisted out of every
     # cost evaluation. NaN rays outside the dst FOV make those pixels
     # invalid for every source (mask_fov discards them anyway).
     rays = cost_ops.dst_ray_dirs(dst_cams, h, w)
     rays = torch.where(dst_fov[..., None], rays, float("nan"))
-    dst2src = tuple(int(i) for i in cam.map_src_to_dst_indexes(rig_src, rig_dst))
+    dst2src = tuple(level_dst2src[i] for i in idx)
     return LevelContext(
         src_cams=src_cams,
         dst_cams=dst_cams,
         dst2src=dst2src,
-        **_image_fields(src_imgs, dst2src),
+        **_image_fields(src_imgs, dst2src, bool(use_pallas_sampler)),
         src_params=warp_cuda.pack_camera_params(src_cams),
         dst_fov_masks=dst_fov,
-        dst_fg_masks=dst_fg_masks.to(device=dev, dtype=torch.bool),
-        dst_bg_disp=dst_bg_disp.to(device=dev, dtype=torch.float32),
+        dst_fg_masks=own(dst_fg_masks).to(device=dev, dtype=torch.bool),
+        dst_bg_disp=own(dst_bg_disp).to(device=dev, dtype=torch.float32),
         var_noise_floor=_f32(floor),
         var_high_thresh=_f32(var_high_thresh),
         dst_rays=rays.permute(0, 3, 1, 2).contiguous(),
+        dst_index=tuple(idx) if block else None,
+        level_dst2src=level_dst2src if block else None,
+        tpu_align=cost_ops.window_align(),
     )
 
 
-def _image_fields(src_imgs: torch.Tensor, dst2src: tuple) -> dict:
+def _image_fields(src_imgs: torch.Tensor, dst2src: tuple, tpu: bool) -> dict:
     """Every field of a level context that depends on the colors: the
-    sources' stacks and variance, and the destinations' colors and
-    variance taken from them."""
+    sources' stacks and variance, the destinations' colors and variance
+    taken from them, and with ``tpu`` the TPU sampler's stack (the JAX
+    package's src_imgs_t, solver.py:145-166: quantized to k/256 under
+    cost.SRC_QUANT_EXACT; float32 storage, see cost.SRC_STACK_BF16, in
+    warp_cuda.rgba_stack's layout)."""
     src_rgba = warp_cuda.rgba_stack(src_imgs)
-    src_variance = sampling.rgb_variance(src_imgs)
+    # source by source into the stacks: the windowed sums' temporaries of
+    # one image, not of all N (the same bits: each source's sums are its own)
+    src_variance = torch.empty(src_imgs.shape[:3], dtype=torch.float32, device=src_imgs.device)
+    src_tpu = torch.zeros_like(src_rgba) if tpu else None
+    for i, img in enumerate(src_imgs):
+        src_variance[i] = sampling.rgb_variance(img)
+        if tpu:
+            src_tpu[i, ..., :3] = cost_ops.quantize_src(img[..., :3]) if cost_ops.SRC_QUANT_EXACT else img[..., :3]
     return dict(
         src_imgs=src_imgs,
         src_rgba=src_rgba,
         src_variance=src_variance,
         dst_planar=warp_cuda.planar_view(src_rgba)[list(dst2src)].contiguous(),
         dst_variance=src_variance[list(dst2src)],
+        src_tpu=src_tpu,
     )
 
 
 def with_images(ctx: LevelContext, src_imgs: torch.Tensor) -> LevelContext:
     """The context of another frame of the same rig and level: ``src_imgs``
     (N, H, W, 3) replace every field that depends on the colors, the
-    destinations' included; cameras, masks and rays stay."""
+    destinations' included (only those the context holds, and the TPU
+    sampler's stack where it has one); cameras, masks and rays stay."""
     src_imgs = src_imgs.to(device=ctx.src_imgs.device, dtype=torch.float32)
     if src_imgs.shape != ctx.src_imgs.shape:
         raise ValueError(f"frame colors {tuple(src_imgs.shape)} vs the context's {tuple(ctx.src_imgs.shape)}")
-    return ctx._replace(**_image_fields(src_imgs, ctx.dst2src))
+    return ctx._replace(**_image_fields(src_imgs, ctx.dst2src, ctx.src_tpu is not None))
 
 
 def select_destinations(ctx: LevelContext, dsts) -> LevelContext:
     """The level context of the dst cameras ``dsts`` (indices into them, in
-    the order given), with the same sources."""
+    the order given), with the same sources: a level of those
+    destinations."""
     idx = list(dsts)
     return ctx._replace(
+        dst_index=None, level_dst2src=None,
         dst_cams=ctx.dst_cams.index(torch.as_tensor(idx, dtype=torch.long, device=ctx.dst_rays.device)),
         dst2src=tuple(ctx.dst2src[i] for i in idx),
         **{f: getattr(ctx, f)[idx] for f in ("dst_planar", "dst_variance", "dst_fov_masks", "dst_fg_masks",
@@ -161,18 +218,32 @@ def select_destinations(ctx: LevelContext, dsts) -> LevelContext:
     )
 
 
+def level_destinations(ctx: LevelContext) -> tuple[tuple, tuple]:
+    """(the indices of the destinations the context holds among its
+    level's, the level's whole dst2src)."""
+    if ctx.dst_index is None:
+        return tuple(range(len(ctx.dst2src))), ctx.dst2src
+    return ctx.dst_index, ctx.level_dst2src
+
+
 def cost_context(ctx: LevelContext) -> CostContext:
     """The cost context of all the level's dst cameras (no copy)."""
     return CostContext(
         cam_dst=ctx.dst_cams, src_params=ctx.src_params, dst_planar=ctx.dst_planar, variance=ctx.dst_variance,
-        exclude_idx=ctx.dst2src, dst_rays=ctx.dst_rays, src_rgba=ctx.src_rgba)
+        exclude_idx=ctx.dst2src, dst_rays=ctx.dst_rays, src_rgba=ctx.src_rgba, src_tpu=ctx.src_tpu,
+        tpu_align=ctx.tpu_align)
+
+
+def _window(cfg: SolverConfig):
+    """The TPU sampler's window of the config, None for its defaults (solver.py:182-183)."""
+    return (cfg.ww_max, cfg.wh_max) if (cfg.ww_max or cfg.wh_max) else None
 
 
 def brute_force_all(ctx: LevelContext, cfg: SolverConfig):
     """Coarsest-level initialization of every dst camera at once (Derp.cpp:384-401)."""
     return cost_ops.brute_force_disparity(
         cost_context(ctx), cfg.min_depth, cfg.max_depth, ctx.dst_fov_masks, ctx.dst_fg_masks, ctx.dst_bg_disp,
-        cfg.has_fg_masks)
+        cfg.has_fg_masks, window=_window(cfg))
 
 
 def level_generator(cfg: SolverConfig, device) -> torch.Generator:
@@ -181,11 +252,20 @@ def level_generator(cfg: SolverConfig, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(cfg.level)
 
 
-def draw_uniforms(generator: torch.Generator, d: int, p: int, h: int, w: int) -> torch.Tensor:
+def draw_uniforms(generator: torch.Generator, d: int, p: int, h: int, w: int, keep=None) -> torch.Tensor:
     """(D, P, H, W) proposal draws in [0, 1) on ``generator``'s device: one
     (P, H, W) draw a destination, in destination order, so destination j
-    draws the same whichever destinations a caller keeps."""
-    return torch.stack([torch.rand((p, h, w), generator=generator, device=generator.device) for _ in range(d)])
+    draws the same whichever destinations a caller keeps. ``keep`` (a range
+    of destinations) keeps only those: the draws up to its end are made one
+    at a time and the others dropped as they come, so no more than one
+    draw beyond the kept ones is held."""
+    kept = range(d) if keep is None else keep
+    out = []
+    for j in range(kept.stop):
+        u = torch.rand((p, h, w), generator=generator, device=generator.device)
+        if j in kept:
+            out.append(u)
+    return torch.stack(out)
 
 
 def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, confidences,
@@ -216,7 +296,8 @@ def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, con
     fov, fg, bg = ctx.dst_fov_masks, ctx.dst_fg_masks, ctx.dst_bg_disp
     min_disp = bg if cfg.has_fg_masks else torch.full_like(bg, 1.0 / cfg.max_depth)
     active = fov & fg & (ctx.dst_variance >= var_thresh)
-    cost0, conf0 = cost_ops.cost_for_disparity(cctx, disparity)
+    window = _window(cfg)
+    cost0, conf0 = cost_ops.cost_for_disparity(cctx, disparity, window)
     cost_thresh = torch.clamp(0.5 * cost0, max=cost_ops.RANDOM_PROP_MAX_COST)
     disp, cost, conf = disparity, cost0, conf0
     amp = (max_disp - min_disp) / 2.0
@@ -224,7 +305,7 @@ def random_proposals(ctx: LevelContext, cfg: SolverConfig, disparity, costs, con
         lo = torch.maximum(min_disp, disp - amp)
         hi = torch.clamp(disp + amp, max=max_disp)
         prop = lo + uniforms[:, k].to(dev) * (hi - lo)
-        pcost, pconf = cost_ops.cost_for_disparity(cctx, torch.where(active, prop, disp))
+        pcost, pconf = cost_ops.cost_for_disparity(cctx, torch.where(active, prop, disp), window)
         accept = active & (pcost < cost) & (pcost < cost_thresh)
         disp = torch.where(accept, prop, disp)
         cost = torch.where(accept, pcost, cost)
@@ -273,7 +354,7 @@ def ping_pong(ctx: LevelContext, cfg: SolverConfig, disparity, costs, confidence
         for dy, dx in offsets:
             cand = _shift_maps(disp, dy, dx)
             ok = _shift_maps(fov, dy, dx) & (cand >= bg_floor) & torch.isfinite(cand)
-            ccost, cconf = cost_ops.cost_for_disparity(cctx, torch.where(ok, cand, disp))
+            ccost, cconf = cost_ops.cost_for_disparity(cctx, torch.where(ok, cand, disp), _window(cfg))
             ccost = torch.where(ok, ccost, math.inf)
             better = ccost < best_cost
             best_cost = torch.where(better, ccost, best_cost)
@@ -295,10 +376,15 @@ MISMATCH_CHUNK_ELEMENTS = 1 << 25
 
 def handle_mismatches(ctx: LevelContext, cfg: SolverConfig, disparity, full_disparity=None):
     """Cross-camera consistency of every dst camera at once
-    (Derp.cpp:553-748), the XLA branch of solver.py:388-396: project each
-    dst pixel's depth into every other camera's disparity map (one K1
-    launch with one channel for all dst maps); with no agreeing camera,
-    replace it by the median of the farther mismatched disparities.
+    (Derp.cpp:553-748): project each dst pixel's depth into every other
+    camera's disparity map (one K1 launch for all dst maps); with no
+    agreeing camera, replace it by the median of the farther mismatched
+    disparities. The default semantics are the XLA branch of
+    solver.py:388-396 (one channel, the disparities); on a context with the
+    TPU sampler's stack, the Pallas branch (solver.py:347-383): K1 in TPU
+    mode through the config's windows over two planes, the NaN-filled
+    disparities and their finite mask, and a source votes only where its
+    sample is valid, not clipped and wholly finite.
 
     ``full_disparity`` holds every source camera's map (default: the dst
     maps, when all cameras are destinations). Returns (new disparity,
@@ -310,9 +396,18 @@ def handle_mismatches(ctx: LevelContext, cfg: SolverConfig, disparity, full_disp
     if full_disparity.shape[0] != n:
         raise ValueError(f"need every source's disparity: {tuple(full_disparity.shape)} vs {n} sources")
     disp = disparity.contiguous()
-    sampled, valid = warp_cuda.project_sample_planes(
-        full_disparity[:, None].contiguous(), ctx.src_params, ctx.dst_cams.position, disp, ctx.dst_rays)
     d, h, w = disp.shape
+    args = (ctx.src_params, ctx.dst_cams.position, disp, ctx.dst_rays)
+    if ctx.src_tpu is None:
+        sampled, valid = warp_cuda.project_sample_planes(full_disparity[:, None].contiguous(), *args)
+    else:
+        # NaNs in a window would poison the TPU's interpolation matmul, so
+        # it samples (filled, finite-mask) pairs (solver.py:340-349)
+        planes = torch.stack([torch.nan_to_num(full_disparity), torch.isfinite(full_disparity).to(torch.float32)],
+                             dim=1)
+        anchors = warp_cuda.tile_windows(*args, (h, w), _window(cfg))
+        sampled, valid, _ = warp_cuda.project_sample_planes_tpu(planes, *args, anchors, _window(cfg))
+        valid = valid & (sampled[:, :, 1] > 0.999)
     step = max(1, MISMATCH_CHUNK_ELEMENTS // (n * h * w))
     parts = [_replace_mismatches(ctx, disp, sampled[:, :, 0], valid, slice(i, i + step)) for i in range(0, d, step)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

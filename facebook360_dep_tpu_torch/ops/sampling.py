@@ -79,6 +79,15 @@ def box_sum_planar(x: torch.Tensor, radius: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     flat = x.reshape((-1, h, w))
     padded = F.pad(flat, (radius, radius, radius, radius), mode="reflect")
+    return box_sum_ringed(padded, radius).reshape(x.shape)
+
+
+def box_sum_ringed(padded: torch.Tensor, radius: int) -> torch.Tensor:
+    """box_sum_planar of planes that already carry their ``radius``-pixel
+    border: (..., H + 2r, W + 2r) -> (..., H, W), in the same order."""
+    h, w = padded.shape[-2] - 2 * radius, padded.shape[-1] - 2 * radius
+    lead = padded.shape[:-2]
+    padded = padded.reshape((-1,) + padded.shape[-2:])
     k = 2 * radius + 1
     acc = padded[:, 0:h]
     for dy in range(1, k):
@@ -86,7 +95,7 @@ def box_sum_planar(x: torch.Tensor, radius: int) -> torch.Tensor:
     out = acc[:, :, 0:w]
     for dx in range(1, k):
         out = out + acc[:, :, dx:dx + w]
-    return out.reshape(x.shape)
+    return out.reshape(lead + (h, w))
 
 
 def box_sum(img: torch.Tensor, radius: int) -> torch.Tensor:

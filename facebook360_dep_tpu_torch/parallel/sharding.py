@@ -12,7 +12,8 @@ map to a mesh of ranks, one process each:
   collective.
 
 Every rank holds every source image, as every worker of the reference
-loads the whole rig's imagery. The level body is
+loads the whole rig's imagery, and only its own block of the destination
+fields (``make_level_context(destinations=)``). The level body is
 :func:`..depth.solver.process_level`, given a ``gather`` for the mismatch
 stage. The random proposals' draws depend on the level and the destination
 only, never on the mesh, so a sharded solve equals ``process_level`` on
@@ -101,27 +102,35 @@ def process_level_sharded(ctx: solver.LevelContext, cfg: solver.SolverConfig, me
     """``process_level`` with the destination cameras sharded over the
     mesh's ``"cam"`` axis.
 
-    ``ctx`` is the whole level's context (every rank builds the same one on
-    its device). This rank solves the destinations ``block(D, mesh, "cam")``:
-    ``init_disparity`` holds its own (D / ranks, H, W) maps, as the previous
-    level returned them; ``uniforms`` is the whole level's (D, P, H, W)
-    draws, of which it uses its block. Without them the draws come from
-    ``generator`` (default: :func:`..depth.solver.level_generator`), drawn
-    for every destination, so they do not depend on the mesh. Returns this
-    rank's (D / ranks, H, W) maps and ``"destinations"``, the indices it
-    holds. D not divisible by the ranks raises.
+    This rank solves the destinations ``block(D, mesh, "cam")``. ``ctx`` is
+    its block of the level (``make_level_context(..., destinations=that
+    block)``), so the rank never holds another rank's destination fields;
+    the whole level's context is taken too, and its block selected from it.
+    ``init_disparity`` holds the rank's own (D / ranks, H, W) maps, as the
+    previous level returned them; ``uniforms`` is the whole level's (D, P,
+    H, W) draws, of which it uses its block. Without them the draws come
+    from ``generator`` (default: :func:`..depth.solver.level_generator`),
+    one destination at a time in destination order, keeping the block's
+    only (``draw_uniforms(keep=)``), so they do not depend on the mesh.
+    Returns this rank's (D / ranks, H, W) maps and ``"destinations"``, the
+    indices it holds. D not divisible by the ranks raises.
     """
-    dsts = block(len(ctx.dst2src), mesh, "cam")
+    held, level_dst2src = solver.level_destinations(ctx)
+    dsts = block(len(level_dst2src), mesh, "cam")
+    if held == tuple(range(len(level_dst2src))) and len(held) != len(dsts):
+        ctx = solver.select_destinations(ctx, dsts)
+    elif held != tuple(dsts):
+        raise ValueError(f"the context holds destinations {held}, this rank solves {tuple(dsts)}")
     h, w = ctx.src_imgs.shape[1:3]
     coarsest = cfg.level == cfg.num_levels - 1
-    if uniforms is None and not coarsest and cfg.num_random_proposals > 0:
+    if uniforms is not None:
+        uniforms = uniforms[dsts.start:dsts.stop]
+    elif not coarsest and cfg.num_random_proposals > 0:
         if generator is None:
             generator = solver.level_generator(cfg, ctx.src_imgs.device)
-        uniforms = solver.draw_uniforms(generator, len(ctx.dst2src), cfg.num_random_proposals, h, w)
-    out = solver.process_level(
-        solver.select_destinations(ctx, dsts), cfg, init_disparity=init_disparity,
-        uniforms=None if uniforms is None else uniforms[dsts.start:dsts.stop],
-        gather=disparity_gather(ctx.dst2src, mesh))
+        uniforms = solver.draw_uniforms(generator, len(level_dst2src), cfg.num_random_proposals, h, w, keep=dsts)
+    out = solver.process_level(ctx, cfg, init_disparity=init_disparity, uniforms=uniforms,
+                               gather=disparity_gather(level_dst2src, mesh))
     return dict(out, destinations=tuple(dsts))
 
 
@@ -131,14 +140,17 @@ def process_frames_sharded(base_ctx: solver.LevelContext, frame_imgs, cfg: solve
     over its ``"cam"`` axis as in :func:`process_level_sharded`.
 
     ``frame_imgs`` (F, N, H, W, 3) are every frame's colors; ``base_ctx``
-    gives the cameras and masks, and each frame's context replaces every
-    field that depends on the colors (:func:`..depth.solver.with_images`).
-    ``init_disparity`` holds this rank's (F / frame ranks, D / cam ranks,
-    H, W) maps; ``uniforms`` is every frame's (F, D, P, H, W) draws. Without
-    them each frame draws from :func:`..depth.solver.level_generator`, as
-    ``DepthEstimator`` solves each frame, so a frame's maps equal
-    ``process_level`` on its own context. Returns this rank's (F / frame
-    ranks, D / cam ranks, H, W) maps, ``"frames"`` and ``"destinations"``.
+    gives the cameras and masks (this rank's block of the ``"cam"`` axis,
+    or the whole level), and each frame's context replaces every field that
+    depends on the colors, the TPU sampler's stack included where the base
+    has one (:func:`..depth.solver.with_images`: the destinations' only for
+    those the base holds). ``init_disparity`` holds this rank's (F / frame
+    ranks, D / cam ranks, H, W) maps; ``uniforms`` is every frame's (F, D,
+    P, H, W) draws. Without them each frame draws from
+    :func:`..depth.solver.level_generator`, as ``DepthEstimator`` solves
+    each frame, so a frame's maps equal ``process_level`` on its own
+    context. Returns this rank's (F / frame ranks, D / cam ranks, H, W)
+    maps, ``"frames"`` and ``"destinations"``.
     """
     frames = block(len(frame_imgs), mesh, "frame")
     outs = []

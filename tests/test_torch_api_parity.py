@@ -6,12 +6,13 @@ name without a leading underscore, and ``__init__``) must have a
 counterpart of the same name in the port's module of the same path, and
 the counterpart must take every parameter the JAX one takes. Methods a
 class inherits from a base class of its module count as its own. Every
-CLI must define the same ``add_argument`` flags and subcommands as the JAX
-CLI of its name.
+field of a ``NamedTuple`` class must be a field of the port's class of
+its name. Every CLI must define the same ``add_argument`` flags and
+subcommands as the JAX CLI of its name.
 
 ``ALLOWED`` lists the differences that are not faults, each with its
-reason: a name (``module::name``) or a parameter (``module::name(param)``)
-the port lacks on purpose. ``RENAMED`` maps a class to its port under
+reason: a name (``module::name``), a parameter (``module::name(param)``)
+or a field (``module::Class[field]``) the port lacks on purpose. ``RENAMED`` maps a class to its port under
 another name, whose methods are then checked. An entry that no longer
 names a gap fails the test too, so the list cannot grow stale.
 """
@@ -25,7 +26,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "facebook360_dep_tpu")
 PORT_PKG = os.path.join(ROOT, "facebook360_dep_tpu_torch")
 
-_A12 = "TPU-only sampler semantics (per-tile source windows, quantization, the sampler toggle): ROADMAP A12"
+_LAYOUT = ("the port's cost context holds what its kernels read in their layouts (src_params, dst_planar, "
+           "src_rgba; src_tpu for the TPU sampler) and all D destinations at once")
 _UNREAD = "the JAX function takes it and never reads it"
 _KEY = "a JAX PRNG key; the port draws from a torch.Generator (generator=) or takes the draws (uniforms=)"
 _AS_NUMPY = "JAX idiom: converts the JAX result to numpy; the port returns tensors (.cpu().numpy())"
@@ -37,13 +39,14 @@ ALLOWED = {
     "ops/warp_pallas.py": "the Pallas TPU kernels, ported as ops/warp_cuda.py and csrc/*.cu (K1-K4)",
     "utils/__init__.py": "the package of utils/hostmath.py",
     "utils/hostmath.py": "pins the JAX package's host math to JAX's CPU backend; the port has no JAX",
-    "ops/cost.py::auto_window": _A12,
-    "ops/cost.py::quantize_src": _A12,
-    "ops/cost.py::stack_dtype": _A12,
-    "ops/cost.py::cost_for_disparity(window)": _A12,
-    "ops/cost.py::brute_force_disparity(window)": _A12,
-    "depth/solver.py::make_level_context(use_pallas_sampler)": _A12,
     "depth/solver.py::make_level_context(src_fg_masks)": _UNREAD,
+    "depth/solver.py::LevelContext[src_imgs_t]": ("the TPU sampler's stack is the port's src_tpu: interleaved (N, H, "
+                                                  "W, 4) as K1 and K3 read it; warp_cuda.planar_view gives the "
+                                                  "JAX package's planar (N, 3, H, W)"),
+    "ops/cost.py::CostContext[src_cams]": _LAYOUT,
+    "ops/cost.py::CostContext[dst_img]": _LAYOUT,
+    "ops/cost.py::CostContext[src_imgs]": _LAYOUT,
+    "ops/cost.py::CostContext[src_imgs_t]": _LAYOUT,
     "cli/convert_to_binary.py::convert_depth(save_obj)": _UNREAD,
     "cli/compute_rephotography_errors.py::load_rig_images(size_wh)": _UNREAD,
     "depth/solver.py::random_proposals(key)": _KEY,
@@ -79,8 +82,16 @@ def _params(fn: ast.FunctionDef) -> list:
     return [n for n in names if n not in ("self", "cls")]
 
 
+def _fields(cls: ast.ClassDef) -> list:
+    """The annotated fields of a ``NamedTuple`` class, else none."""
+    if not any(getattr(b, "id", getattr(b, "attr", None)) == "NamedTuple" for b in cls.bases):
+        return []
+    return [n.target.id for n in cls.body if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name)]
+
+
 def _public(path: str) -> dict:
-    """{name or Class.method: its parameters (None for a class)} of a module."""
+    """{name, Class.method or Class[field]: its parameters (None for a
+    class, [] for a field)} of a module."""
     with open(path) as f:
         tree = ast.parse(f.read())
     classes = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)}
@@ -103,6 +114,7 @@ def _public(path: str) -> dict:
         elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
             out[node.name] = None
             out.update({f"{node.name}.{m}": p for m, p in methods(node).items()})
+            out.update({f"{node.name}[{f}]": [] for f in _fields(node)})
     return out
 
 

@@ -171,7 +171,8 @@ def test_wrappers_validate_and_count(inputs):
     wc.reset_launch_counts()
     wc.project_sample(*_k1(cctx, disp, rgba))
     wc.project_sample_plain(*_k1(cctx, disp, planes))
-    assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0}
+    assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
+                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0}
     assert wc.LAUNCHES_BY_SHAPE == {("project_sample", *disp.shape): 1}
     with pytest.raises(ValueError, match="contiguous"):
         wc.project_sample(*_k1(cctx, disp.t().contiguous().t(), rgba))
@@ -264,7 +265,8 @@ def test_cost_for_disparity_batched_equals_single_destinations(dev, w, h):
         wc.reset_launch_counts()
         cost, conf = cost_ops.cost_for_disparity(solver.cost_context(ctx), hyp)
         assert wc.LAUNCHES == {"project_sample": 0 if fused else 1, "ssd_combine": 0 if fused else 16,
-                               "cost_fused": 16 if fused else 0, "warp_sample": 0}
+                               "cost_fused": 16 if fused else 0, "warp_sample": 0,
+                               "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0}
         assert (cost < FLT_MAX).double().mean().item() > 0.5
         for d in range(16):
             one = solver.cost_context(solver.select_destinations(ctx, [d]))
@@ -356,3 +358,122 @@ def test_sharded_level_over_nccl_equals_process_level(dev):
     for k, v in want.items():
         a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (got[k], v))
         assert torch.equal(a, b), k
+
+
+# The TPU sampler's semantics (use_pallas_sampler=True): the anchor kernel,
+# K1 and K3 in TPU mode against their twins at the JAX package's test
+# shapes (whole tiles or not), a coarse ragged shape and the first K3
+# level, with the default windows and with small ones that clip.
+TPU_SHAPES = [(200, 50), (256, 48), (208, 49), (61, 45), (512, 384)]
+TPU_WINDOWS = [None, (128, 16)]
+
+
+def _tpu_level(dev, w, h, n=8):
+    """A use_pallas_sampler level context of a mixed-type distorted ring and
+    scattered candidate maps (depths 0.5-100 m), which clip."""
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=n, resolution=(w, h), mixed=True))
+    colors, _ = synthetic.render_sphere_scene(rig, (w, h), device=dev)
+    ctx = solver.make_level_context(rig, rig, colors, pipeline.generate_fov_masks(rig, (h, w), dev),
+                                    use_pallas_sampler=True)
+    gen = torch.Generator(device=dev).manual_seed(w + h)
+    return ctx, (0.01 + 1.99 * torch.rand((n, h, w), generator=gen, device=dev)).contiguous()
+
+
+def _tpu_args(ctx, disp):
+    return ctx.src_params, ctx.dst_cams.position, disp, ctx.dst_rays
+
+
+@pytest.mark.parametrize("window", TPU_WINDOWS)
+@pytest.mark.parametrize("w,h", TPU_SHAPES)
+def test_tile_windows_matches_twin(dev, w, h, window):
+    """Anchors over both paddings: the kernel projects as K1 and K3 do, the
+    twin as PyTorch on the card; a coordinate an ulp apart moves a tile's
+    span centre across an alignment step at < 2% of (tile, source) pairs,
+    and then by one step."""
+    ctx, disp = _tpu_level(dev, w, h)
+    for reflect in (False, True):
+        k = wc.tile_windows(*_tpu_args(ctx, disp), (h, w), window, reflect=reflect)
+        p = wc.tile_windows_plain(*_tpu_args(ctx, disp), (h, w), window, reflect=reflect)
+        assert k.shape == p.shape == (8, 8, -(-h // 24), -(-w // 128), 2) and k.dtype == torch.int32
+        same = (k == p).all(-1)
+        assert same.double().mean().item() >= 0.98
+        step = torch.tensor([128, 8], device=dev)
+        assert ((k - p).abs() <= step).all()
+
+
+@pytest.mark.parametrize("window", TPU_WINDOWS)
+@pytest.mark.parametrize("w,h", TPU_SHAPES)
+def test_project_sample_tpu_matches_twin(dev, w, h, window):
+    """K1 in TPU mode on the kernel's anchors, C = 3 on the quantized stack
+    (all D maps in one launch) and C = 2 on the mismatch stage's planes:
+    flags agree but for < 1e-3 of (source, pixel) pairs (coordinates an ulp
+    apart at a window edge), samples are bit-equal at >= 99.5% of the
+    pixels both call valid (k/256 sources; C = 2 within 1e-6 relative) and
+    within 1/256 px elsewhere."""
+    ctx, disp = _tpu_level(dev, w, h)
+    args = _tpu_args(ctx, disp)
+    anchors = wc.tile_windows(*args, (h, w), window)
+    wc.reset_launch_counts()
+    s_k, v_k, c_k = wc.project_sample_tpu(ctx.src_tpu, *args, anchors, window)
+    assert wc.LAUNCHES["project_sample_tpu"] == 1 and wc.LAUNCHES["project_sample"] == 0
+    s_p, v_p, c_p = wc.project_sample_tpu_plain(wc.planar_view(ctx.src_tpu), *args, anchors, window)
+    assert c_p.any(), "nothing clipped"
+    for a, b in ((v_k, v_p), (c_k, c_p)):
+        assert (a != b).double().mean().item() < 1e-3
+    both = (v_k & v_p)[:, :, None].expand_as(s_k)
+    assert (s_k == s_p)[both].double().mean().item() >= 0.995
+    assert (s_k - s_p)[both].abs().max().item() <= 2.0 / 256.0
+    assert not s_k[~v_k[:, :, None].expand_as(s_k)].any()
+    full = torch.where(torch.rand(disp.shape, device=dev) < 0.05, float("nan"), disp)
+    planes = torch.stack([torch.nan_to_num(full), torch.isfinite(full).float()], dim=1)
+    d_k, dv_k, dc_k = wc.project_sample_planes_tpu(planes, *args, anchors, window)
+    d_p, dv_p, dc_p = wc.project_sample_tpu_plain(planes, *args, anchors, window)
+    assert (dv_k != dv_p).double().mean().item() < 1e-3 and (dc_k != dc_p).double().mean().item() < 1e-3
+    b2 = (dv_k & dv_p)[:, :, None].expand_as(d_k)
+    rel = (d_k - d_p)[b2].abs() / (1 + d_p[b2].abs())
+    assert (rel <= 1e-6).double().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("window", TPU_WINDOWS)
+@pytest.mark.parametrize("w,h", TPU_SHAPES)
+def test_cost_fused_tpu_matches_twin(dev, w, h, window):
+    """K3 in TPU mode on the kernel's reflect-padded anchors against its
+    twin, destination 3: FLT_MAX patterns agree but for < 1e-2 of the
+    pixels (a flag an ulp apart reaches a patch of 9 and the clip guard),
+    costs within 1e-4 relative at >= 99% of the pixels both evaluate,
+    confidence equal at >= 99.9%."""
+    ctx, disp = _tpu_level(dev, w, h)
+    cctx = solver.cost_context(ctx)
+    one = (cctx.src_params, cctx.cam_dst.position[3], disp[3], cctx.dst_rays[3])
+    rest = (cctx.dst_planar[3], cctx.variance[3], cctx.exclude_idx[3])
+    anchors = wc.tile_windows(*one, (h, w), window, reflect=True)
+    wc.reset_launch_counts()
+    c_k, f_k = wc.cost_fused_tpu(ctx.src_tpu, *one, *rest, anchors, window)
+    assert wc.LAUNCHES["cost_fused_tpu"] == 1 and wc.LAUNCHES["cost_fused"] == 0
+    c_p, f_p = wc.cost_fused_tpu_plain(wc.planar_view(ctx.src_tpu), *one, *rest, anchors, window)
+    fin_k, fin_p = c_k < FLT_MAX, c_p < FLT_MAX
+    assert (fin_k != fin_p).double().mean().item() < 1e-2
+    assert (~fin_p).any() and fin_p.any()
+    both = fin_k & fin_p
+    rel = (c_k[both] - c_p[both]).abs() / (1 + c_p[both].abs())
+    assert (rel <= 1e-4).double().mean().item() >= 0.99
+    assert (f_k == f_p).double().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("w,h", [(208, 49), (512, 384)])
+def test_cost_for_disparity_tpu_mode_launches(dev, w, h):
+    """cost_for_disparity on a use_pallas_sampler context launches the TPU
+    modes and never the default kernels: below 512x384 one anchor and one
+    K1 launch for all maps and K2 a map, from there up an anchor and a K3
+    launch a map; the default context's costs are those of the default
+    kernels."""
+    ctx, disp = _tpu_level(dev, w, h)
+    wc.reset_launch_counts()
+    cost, conf = cost_ops.cost_for_disparity(solver.cost_context(ctx), disp, window=(128, 16))
+    d = disp.shape[0]
+    if w * h < cost_ops.FUSED_MIN_PIXELS:
+        want = dict(tile_windows=1, project_sample_tpu=1, ssd_combine=d)
+    else:
+        want = dict(tile_windows=d, cost_fused_tpu=d)
+    assert {k: v for k, v in wc.LAUNCHES.items() if v} == want
+    assert (cost == FLT_MAX).any() and (cost < FLT_MAX).any()

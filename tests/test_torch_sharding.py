@@ -23,6 +23,7 @@ from facebook360_dep_tpu.render import synthetic as jsyn
 from facebook360_dep_tpu_torch.core import camera as tcam
 from facebook360_dep_tpu_torch.depth import pipeline as tpipe
 from facebook360_dep_tpu_torch.depth import solver as ts
+from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
 from torch_parity import f32, port_rig, tt
 from torch_ranks import finish, kill, start
@@ -34,6 +35,10 @@ BASE = dict(min_depth=1.0, max_depth=100.0, level=1, num_levels=3, ping_pong_ite
 CFG = dict(BASE, num_random_proposals=2)
 CFG0 = dict(BASE, num_random_proposals=0)
 FRAME_CFG0 = dict(CFG0, level=0)
+# the TPU sampler's semantics (use_pallas_sampler=True) with windows of 8 rows, which clip
+TPU_CFG = dict(CFG, ww_max=128, wh_max=8)
+TPU = dict(use_pallas_sampler=True)
+DST_FIELDS = ("dst_planar", "dst_variance", "dst_fov_masks", "dst_fg_masks", "dst_bg_disp", "dst_rays")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -75,7 +80,10 @@ def scene():
 def started(scene, tmp_path_factory):
     """The port's sharded solves by world size, started: default draws
     (``level``), no proposals (``level0``), the draws of JAX's 8 shards and
-    of its one device; at 4 ranks also two frames on a 2 x 2 mesh and 6
+    of its one device, and each rank on its own block of the level's
+    context (``block``); at 4 ranks also two frames on a 2 x 2 mesh (from
+    the whole context, and from each rank's block), the TPU sampler's
+    semantics on the blocks (``tpu_block``, ``tpu_frames``) and 6
     destinations over 4 ranks."""
     init = torch.from_numpy(scene["init"])
     key = jax.random.PRNGKey(1)
@@ -85,11 +93,17 @@ def started(scene, tmp_path_factory):
         "jax_draws": dict(kind="level", cfg=CFG, init=init, uniforms=torch.from_numpy(jax_shard_draws(key, 8, 2))),
         "jax_single_draws": dict(kind="level", cfg=CFG, init=init,
                                  uniforms=torch.from_numpy(jax_shard_draws(key, 1, 2))),
+        "block": dict(kind="level", cfg=CFG, init=init, block=True),
     }
     frames, inits = torch.from_numpy(scene["frames"]), torch.stack([init, init])
     frame_tasks = {
         "frames": dict(kind="frames", frame_axis=2, cfg=dict(CFG, level=0), frames=frames, init=inits),
         "frames0": dict(kind="frames", frame_axis=2, cfg=FRAME_CFG0, frames=frames, init=inits),
+        "frames_block": dict(kind="frames", frame_axis=2, cfg=dict(CFG, level=0), frames=frames, init=inits,
+                             block=True),
+        "tpu_block": dict(kind="level", cfg=TPU_CFG, init=init, block=True, context=TPU),
+        "tpu_frames": dict(kind="frames", frame_axis=2, cfg=dict(TPU_CFG, level=0), frames=frames, init=inits,
+                           block=True, context=TPU),
         "indivisible": dict(kind="indivisible", cfg=CFG, destinations=6),
     }
     job = dict(kind="solve", rig=scene["trig"], colors=torch.from_numpy(scene["colors"]),
@@ -232,3 +246,71 @@ def test_destinations_not_divisible_by_the_ranks_raise(runs):
     for saved in runs[4]:
         assert "6 items along 'cam' not divisible by its 4 ranks" in saved["indivisible"]
         assert "4 ranks do not split into 3 frame groups" in saved["indivisible_frames"]
+
+
+def _frame_references(scene, cfg, **context):
+    """process_level on each frame's own context."""
+    fov = tpipe.generate_fov_masks(scene["trig"], (H, W))
+    return [ts.process_level(ts.make_level_context(scene["trig"], scene["trig"], tt(frame), fov,
+                                                   var_high_thresh=VAR_HIGH, **context),
+                             ts.SolverConfig(**cfg), init_disparity=tt(scene["init"]))
+            for frame in scene["frames"]]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_block_contexts_hold_only_their_destinations(runs, single, world):
+    """A rank's context (make_level_context(destinations=its block)) holds
+    its block's destination fields only, with dst2src into the full source
+    list; the rank keeps the (D / ranks, P, H, W) draws of its block; the
+    maps equal process_level's bit for bit."""
+    k = D // world
+    for rank, saved in enumerate(runs[world]):
+        fields = saved["block_fields"]
+        assert fields["dst_index"] == tuple(range(rank * k, (rank + 1) * k)) == fields["dst2src"]
+        assert fields["dst_planar"] == (k, 3, H, W) and fields["dst_rays"] == (k, 3, H, W)
+        assert all(fields[f] == (k, H, W) for f in ("dst_variance", "dst_fov_masks", "dst_fg_masks", "dst_bg_disp"))
+        assert saved["block_draws"] == [(k, 2, H, W)]
+        assert saved["level_draws"] == [(k, 2, H, W)]  # from the whole context: the block's draws only too
+        assert same_bits(saved["block"], single), (world, rank)
+
+
+def test_draws_keep_one_block():
+    """draw_uniforms(keep=) returns the kept destinations' draws of the
+    whole level's, whichever block is kept."""
+    full = ts.draw_uniforms(torch.Generator().manual_seed(7), 8, 2, 5, 6)
+    for keep in (range(0, 2), range(4, 8), range(3, 4)):
+        got = ts.draw_uniforms(torch.Generator().manual_seed(7), 8, 2, 5, 6, keep=keep)
+        assert torch.equal(got, full[keep.start:keep.stop])
+
+
+def test_frames_from_blocks_equal_process_level_per_frame(scene, runs):
+    """2 frames x 2 camera ranks on each rank's block, in the default and
+    the TPU sampler's semantics: each frame's maps equal process_level on
+    that frame's own context; the TPU semantics solve differently."""
+    want = _frame_references(scene, dict(CFG, level=0))
+    want_tpu = _frame_references(scene, dict(TPU_CFG, level=0), **TPU)
+    assert not torch.equal(want[0]["disparity"].nan_to_num(), want_tpu[0]["disparity"].nan_to_num())
+    for rank, saved in enumerate(runs[4]):
+        assert saved["frames_block_frames"] == saved["tpu_frames_frames"] == ((0,) if rank < 2 else (1,))
+        assert saved["tpu_frames_fields"]["dst_planar"] == (4, 3, H, W)
+        for f in range(2):
+            assert same_bits({k: v[f] for k, v in saved["frames_block"].items()}, want[f]), (rank, f)
+            assert same_bits({k: v[f] for k, v in saved["tpu_frames"].items()}, want_tpu[f]), (rank, f)
+
+
+def test_tpu_mode_sharded_equals_process_level(scene, runs):
+    """The TPU sampler's semantics on 4 ranks' blocks (windows that clip,
+    the mismatch stage's TPU-mode branch included) equal process_level on
+    one process bit for bit."""
+    ctx = ts.make_level_context(scene["trig"], scene["trig"], tt(scene["colors"]),
+                                tpipe.generate_fov_masks(scene["trig"], (H, W)), var_high_thresh=VAR_HIGH, **TPU)
+    want = ts.process_level(ctx, ts.SolverConfig(**TPU_CFG), init_disparity=tt(scene["init"]))
+    cctx = ts.cost_context(ctx)
+    _, _, clipped = wc.project_sample_tpu(cctx.src_tpu, cctx.src_params, cctx.cam_dst.position, tt(scene["init"]),
+                                          cctx.dst_rays, wc.tile_windows(cctx.src_params, cctx.cam_dst.position,
+                                                                         tt(scene["init"]), cctx.dst_rays, (H, W),
+                                                                         (128, 8)), (128, 8))
+    assert clipped.any()
+    for rank, saved in enumerate(runs[4]):
+        assert saved["tpu_block_fields"]["dst_index"] == tuple(range(2 * rank, 2 * rank + 2))
+        assert same_bits(saved["tpu_block"], want), rank

@@ -62,6 +62,36 @@ def port_rig(tcam, jrig):
     return tcam.Rig(tcam.camera_from_numpy(jrig.cameras), jrig.ids, jrig.groups)
 
 
+def port_level_context(ts, tcam, jctx):
+    """The port's LevelContext holding the JAX LevelContext's state: its
+    float32 cameras, images, variance (the JAX package's own), masks and
+    rays, and, from a ``use_pallas_sampler=True`` context, its quantized
+    sampling stack (src_imgs_t, planar) as the port's interleaved src_tpu;
+    so that both packages solve from the same state."""
+    from facebook360_dep_tpu_torch.ops import warp_cuda as wc
+
+    src_cams = tcam.camera_from_numpy(jctx.src_cams, dtype=torch.float32)
+    dst2src = tuple(int(i) for i in np.asarray(jctx.dst2src))
+    src_imgs = tt(jctx.src_imgs)
+    src_rgba = wc.rgba_stack(src_imgs)
+    src_variance = tt(jctx.src_variance)
+    return ts.LevelContext(
+        src_cams=src_cams, dst_cams=tcam.camera_from_numpy(jctx.dst_cams, dtype=torch.float32), dst2src=dst2src,
+        src_imgs=src_imgs, src_rgba=src_rgba, src_params=wc.pack_camera_params(src_cams),
+        src_variance=src_variance, dst_planar=wc.planar_view(src_rgba)[list(dst2src)].contiguous(),
+        dst_variance=src_variance[list(dst2src)], dst_fov_masks=tt(jctx.dst_fov_masks),
+        dst_fg_masks=tt(jctx.dst_fg_masks), dst_bg_disp=tt(jctx.dst_bg_disp),
+        var_noise_floor=float(np.float32(jctx.var_noise_floor)), var_high_thresh=float(np.float32(jctx.var_high_thresh)),
+        dst_rays=tt(np.moveaxis(np.asarray(jctx.dst_rays), -1, 1)),
+        src_tpu=None if jctx.src_imgs_t is None else wc.rgba_stack(tt(np.moveaxis(np.asarray(jctx.src_imgs_t), 1, -1))),
+        tpu_align=16 if jctx.src_imgs_t is not None and np.asarray(jctx.src_imgs_t).dtype.itemsize == 2 else 8)
+
+
+def port_config(ts, jcfg):
+    """The port's SolverConfig of a JAX SolverConfig, the window included."""
+    return ts.SolverConfig(**jcfg._asdict())
+
+
 def jax_f32(tree):
     """A JAX camera pytree with its float leaves cast to float32."""
     import jax

@@ -13,7 +13,10 @@ what each rank saved. A rank imports torch and the port only. Job kinds:
   level context of ``rig`` and ``colors``, run each of ``tasks`` (a
   ``process_level_sharded`` on the camera mesh, a ``process_frames_sharded``
   on a frame x camera mesh, or a context whose destinations do not divide
-  by the ranks) and save the gathered results;
+  by the ranks) and save the gathered results. A task with ``block`` builds
+  the rank's own context (``make_level_context(destinations=)``, with the
+  task's ``context`` arguments) and saves the shapes of its destination
+  fields and of the proposal draws the rank kept;
 - ``derp_cli``: run ``derp_cli.main(argv + the coordinator flags,
   device="cpu")``, which joins the group itself.
 """
@@ -91,21 +94,39 @@ def _solve(job: dict, rank: int) -> dict:
                                     **job.get("context", {}))
     d = len(ctx.dst2src)
     saved = {}
+    draws = []
+    draw_uniforms = solver.draw_uniforms
+
+    def counting_draws(*args, **kwargs):
+        out = draw_uniforms(*args, **kwargs)
+        draws.append(tuple(out.shape))
+        return out
+
+    solver.draw_uniforms = counting_draws
     for name, task in job["tasks"].items():
         cfg = solver.SolverConfig(**task["cfg"])
         init = task.get("init")
+        mesh = sharding.frame_camera_mesh(task["frame_axis"]) if task["kind"] == "frames" else None
+        mesh = sharding.camera_mesh() if task["kind"] == "level" else mesh
+        base = ctx
+        if task.get("block"):
+            base = solver.make_level_context(rig, rig, colors, pipeline.generate_fov_masks(rig, (h, w)),
+                                             destinations=sharding.block(d, mesh, "cam"),
+                                             **dict(job.get("context", {}), **task.get("context", {})))
+            saved[name + "_fields"] = {f: tuple(getattr(base, f).shape) for f in (
+                "dst_planar", "dst_variance", "dst_fov_masks", "dst_fg_masks", "dst_bg_disp", "dst_rays")}
+            saved[name + "_fields"].update(dst2src=base.dst2src, dst_index=base.dst_index)
+        draws.clear()
         if task["kind"] == "level":
-            mesh = sharding.camera_mesh()
             dsts = sharding.block(d, mesh, "cam")
             out = sharding.process_level_sharded(
-                ctx, cfg, mesh, init_disparity=None if init is None else init[dsts.start:dsts.stop],
+                base, cfg, mesh, init_disparity=None if init is None else init[dsts.start:dsts.stop],
                 uniforms=task.get("uniforms"))
         elif task["kind"] == "frames":
-            mesh = sharding.frame_camera_mesh(task["frame_axis"])
             frames = sharding.block(len(task["frames"]), mesh, "frame")
             dsts = sharding.block(d, mesh, "cam")
             out = sharding.process_frames_sharded(
-                ctx, task["frames"], cfg, mesh,
+                base, task["frames"], cfg, mesh,
                 init_disparity=None if init is None else init[frames.start:frames.stop, dsts.start:dsts.stop],
                 uniforms=task.get("uniforms"))
             saved[name + "_frames"] = out["frames"]
@@ -121,7 +142,9 @@ def _solve(job: dict, rank: int) -> dict:
                 saved[name + "_frames"] = str(e)
             continue
         saved[name + "_destinations"] = out["destinations"]
+        saved[name + "_draws"] = list(draws)
         saved[name] = sharding.gather_result(out, mesh)
+    solver.draw_uniforms = draw_uniforms
     multihost.shutdown()
     return saved
 
