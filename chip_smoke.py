@@ -165,7 +165,9 @@
    share per level; every TPU-mode kernel and K2 launched, no default K1
    or K3; (c) step 13b's production FTHETA shape the same way: the window
    per level, the clipped share and the level-0 error inside the image
-   circles (< 0.05).
+   circles (< 0.05). (b) and (c) print the digests of their level-0 maps,
+   then make one anchor launch a cost evaluation (for all maps) at every
+   level, or fail.
 
 Any failure raises (exit code != 0). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -201,8 +203,9 @@ line).
     python3 chip_smoke.py --kernel-digests
 
 builds the kernels and prints the digests of the default-mode K1-K3
-outputs on step 3's inputs (``{"kernel_digests": ...}``): run with this
-script in another checkout, equal digests are equal bits.
+outputs and of the anchor kernel's on step 3's inputs
+(``{"kernel_digests": ...}``): run with this script in another checkout,
+equal digests are equal bits.
 
     python3 chip_smoke.py --step15
 
@@ -2276,12 +2279,24 @@ STEP16_WIDTHS = (256, 512, 2048)  # K1 then K2 below 512x384, K3 from there up, 
 STEP16_CHECK_MAPS = 4  # destination maps the twins are checked on from 512x384 up (K1 samples all 16)
 
 
-def tile_windows_work(n, h, w, d):
-    """The anchor kernel: each map's disparity and rays read once, the
-    anchors written once; its operations, one projection of every pixel of
-    the tile-padded grid into every source."""
-    hp, wp = -(-h // 24) * 24, -(-w // 128) * 128
-    return d * 16 * h * w + n * PARAM_BYTES + d * n * (hp // 24) * (wp // 128) * 8, d * n * hp * wp * k1_flops(0)
+# k1_flops(0) split as common.cuh splits the projection: the world point of
+# a destination pixel (the clamp, the reciprocal, three products and three
+# sums), then the rest of a (pixel, source) projection
+WORLD_POINT_FLOPS = 8
+PROJECT_FLOPS = k1_flops(0) - WORLD_POINT_FLOPS
+
+
+def tile_windows_work(n, disp, rays):
+    """The anchor kernel's least work on D maps ``disp`` (D, H, W) and
+    ``rays`` (D, 3, H, W): each map's disparity and rays read once, the
+    cameras once, the anchors written once; the world point once a pixel,
+    the projection once a (source, pixel with d > 0 and a ray) pair (the
+    others project nothing)."""
+    d, h, w = disp.shape
+    projected = ((disp > 0) & ~rays.isnan().any(dim=1)).sum().item()
+    tiles = -(-h // 24) * -(-w // 128)
+    return (d * 16 * h * w + n * PARAM_BYTES + d * n * tiles * 8,
+            d * h * w * WORLD_POINT_FLOPS + n * projected * PROJECT_FLOPS)
 
 
 def _tpu_flags_share(clipped, valid, exclude=None):
@@ -2378,7 +2393,7 @@ def step16_kernels(dev, smi):
         # times, the default mode's kernel beside each
         rows = dict(
             tile_windows=level_row(f"anchors ({k} maps)", h, w, lambda: wc.tile_windows(*args, (hs, ws)),
-                                   tile_windows_work(n, h, w, k), 20, 20),
+                                   tile_windows_work(n, disp[:k], ctx.dst_rays[:k]), 20, 20),
             project_sample_tpu=level_row(f"K1 TPU ({k} maps)", h, w,
                                          lambda: wc.project_sample_tpu(ctx.src_tpu, *args, anchors),
                                          k1_work(n, 3, hs, ws, h, w, k), 20, 10),
@@ -2421,7 +2436,9 @@ def step16_kernels(dev, smi):
 def default_kernel_digests(dev):
     """SHA-256 of the default-mode K1 (C = 3, all 16 maps; C = 1), K2 and
     K3 outputs on step 3's inputs at 256x192 and 2048x1536 (K1 there on 4
-    maps): run in two checkouts, equal digests are equal bits."""
+    maps), and of the anchor kernel's at 256x192, 512x384 and 2048x1536
+    (edge and reflect padding; all 16 maps in one launch, and map 3 alone):
+    run in two checkouts, equal digests are equal bits."""
     import hashlib
 
     import torch
@@ -2429,9 +2446,23 @@ def default_kernel_digests(dev):
     from facebook360_dep_tpu_torch.depth import solver
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
     out = {}
-    for width in (256, 2048):
+    for width in (256, 512, 2048):
         ctx, disp, gt, fov = level_inputs(width, dev)
+        src_hw = tuple(ctx.src_imgs.shape[1:3])
+        params, pos, rays = ctx.src_params, ctx.dst_cams.position, ctx.dst_rays
+        for reflect in (False, True):
+            for maps, args in (("16maps", (params, pos, disp, rays)), ("map3", (params, pos[3], disp[3], rays[3]))):
+                out[f"anchors_{width}_{'reflect' if reflect else 'edge'}_{maps}"] = digest(
+                    wc.tile_windows(*args, src_hw, reflect=reflect))
+        if width == 512:  # the anchors' level only
+            continue
         cctx = solver.cost_context(ctx)
         k = 16 if width == 256 else 4
         args = (ctx.src_params, ctx.dst_cams.position[:k], disp[:k], ctx.dst_rays[:k])
@@ -2442,10 +2473,7 @@ def default_kernel_digests(dev):
         c2 = wc.ssd_combine(s3[3], v3[3], *rest)
         c3 = wc.cost_fused(ctx.src_rgba, *one, *rest)
         for name, ts in (("k1_c3", (s3, v3)), ("k1_c1", (s1, v1)), ("k2", c2), ("k3", c3)):
-            h = hashlib.sha256()
-            for t in ts:
-                h.update(t.contiguous().cpu().numpy().tobytes())
-            out[f"{name}_{width}"] = h.hexdigest()
+            out[f"{name}_{width}"] = digest(*ts)
         del ctx, cctx, s3, v3, s1, v1
         torch.cuda.empty_cache()
     return out
@@ -2471,7 +2499,7 @@ def _tpu_pyramid(name, rig, dev, smi, sizes):
     destinations, the mismatch stage from level STEP14_MISMATCHES_START_LEVEL),
     its launches counted from zero; then the clipped share of each level's
     final maps (launches not counted). Returns (level-0 result, launches,
-    windows, clipped share by level, seconds)."""
+    launches by (kernel, H, W), windows, clipped share by level, seconds)."""
     import torch
 
     from facebook360_dep_tpu_torch.core import camera as cam
@@ -2486,6 +2514,7 @@ def _tpu_pyramid(name, rig, dev, smi, sizes):
                              keep=levels, use_pallas_sampler=True, sizes=sizes,
                              config=lambda level, ctx: _tpu_config(level, ctx, len(sizes), windows))
     seconds, launches = _phase_end(f"step 16 {name}: the TPU-semantics pyramid in one process", t, smi)
+    by_shape = dict(wc.LAUNCHES_BY_SHAPE)
     nrig = cam.normalize_rig(rig)
     params = wc.pack_camera_params(nrig.cameras.to(dev, torch.float32))
     exclude = list(cam.map_src_to_dst_indexes(nrig, nrig))
@@ -2510,7 +2539,24 @@ def _tpu_pyramid(name, rig, dev, smi, sizes):
         clipped[level] = clip / max(seen, 1)
         log(f"  level {level} ({w}x{h}): window {ww}x{wh} (auto_window; solved with "
             f"{window[0] or 256}x{window[1] or 40}), clipped share of the final maps' visible pairs {clipped[level]:.6f}")
-    return kept[0], launches, windows, clipped, seconds
+    return kept[0], launches, by_shape, windows, clipped, seconds
+
+
+def check_anchor_launches(name, by_shape, d):
+    """One anchor launch a cost evaluation of the D = ``d`` maps and one a
+    mismatch stage, at every level: as many as K1 TPU launches there (the
+    cost evaluations below 512x384, the mismatch stage's everywhere) plus
+    K3 TPU's, which run a map. Raises otherwise."""
+    shapes = sorted({(h, w) for _, h, w in by_shape}, reverse=True)
+    total = 0
+    for h, w in shapes:
+        anchors = by_shape.get(("tile_windows", h, w), 0)
+        k1, k3 = by_shape.get(("project_sample_tpu", h, w), 0), by_shape.get(("cost_fused_tpu", h, w), 0)
+        if k3 % d or anchors != k1 + k3 // d:
+            raise AssertionError(f"step 16 {name} at {w}x{h}: {anchors} anchor launches, K1 TPU {k1}, "
+                                 f"K3 TPU {k3} over {d} maps")
+        total += anchors
+    log(f"  step 16 {name}: one anchor launch a cost evaluation and a mismatch stage at every level, {total} in all")
 
 
 def run_step16(dev, smi):
@@ -2521,8 +2567,10 @@ def run_step16(dev, smi):
     default mode's and the clipped share per level, every TPU kernel (and
     K2) launched and no default-mode K1 or K3; (c) the production FTHETA
     shape (step 13b's rig): the window per level, the clipped share and the
-    level-0 error inside the image circles (bar LEVEL0_BAR). Returns
-    (metrics, the kernel results, launches by phase)."""
+    level-0 error inside the image circles (bar LEVEL0_BAR). (b) and (c)
+    print their level-0 maps' digests, then hold their launches to one
+    anchor launch a cost evaluation at every level (check_anchor_launches).
+    Returns (metrics, the kernel results, launches by phase)."""
     import torch
 
     from facebook360_dep_tpu_torch.core import camera as cam
@@ -2538,7 +2586,9 @@ def run_step16(dev, smi):
     t = _phase_start()
     ref, _ = sphere_pyramid(rig, WIDTHS, dev, lambda ctx, cfg, init: solver.process_level(ctx, cfg, init), keep=(0,))
     default_s, _ = _phase_end("step 16 (b): the default-mode pyramid (the reference for the differing share)", t, smi)
-    tpu0, launches, windows, clipped, tpu_s = _tpu_pyramid("(b) sphere", rig, dev, smi, sizes)
+    tpu0, launches, by_shape, windows, clipped, tpu_s = _tpu_pyramid("(b) sphere", rig, dev, smi, sizes)
+    digests = map_digests(tpu0)  # printed before any check, so a parent checkout's run prints them too
+    log(f"  step 16 (b) level-0 digests: {json.dumps(digests)}")
     want = ("tile_windows", "project_sample_tpu", "ssd_combine", "cost_fused_tpu")
     if min(launches[k] for k in want) <= 0 or launches["project_sample"] or launches["cost_fused"]:
         raise AssertionError(f"step 16 (b): launches {launches}")
@@ -2557,16 +2607,22 @@ def run_step16(dev, smi):
     frig = synthetic.make_ftheta_ring_rig(15, ring_radius=0.33, resolution=FTHETA_RESOLUTION,
                                           distortion=synthetic.PRODUCTION_FTHETA_DISTORTION)
     fsizes = [(w, int(round(w * FTHETA_RESOLUTION[1] / FTHETA_RESOLUTION[0]))) for w in WIDTHS]
-    f0, f_launches, f_windows, f_clipped, f_s = _tpu_pyramid("(c) production FTHETA shape", frig, dev, smi, fsizes)
+    f0, f_launches, f_by_shape, f_windows, f_clipped, f_s = _tpu_pyramid("(c) production FTHETA shape", frig, dev,
+                                                                          smi, fsizes)
+    f_digests = map_digests(f0)
+    log(f"  step 16 (c) level-0 digests: {json.dumps(f_digests)}")
     _, ftruth = synthetic.render_sphere_scene(frig, fsizes[0], radius=5.0, device=dev)
     circles = pipeline.generate_fov_masks(cam.normalize_rig(frig), fsizes[0][::-1], "cpu").numpy()
     f_med, f_cov, f_rmse = level0_error_in(f0["disparity"].cpu().numpy(), ftruth.cpu().numpy(), circles,
                                            "step 16 (c) FTHETA level 0 (TPU semantics) inside the image circles")
     if min(f_launches[k] for k in want) <= 0:
         raise AssertionError(f"step 16 (c): launches {f_launches}")
+    check_anchor_launches("(b)", by_shape, NUM_CAMERAS)
+    check_anchor_launches("(c)", f_by_shape, frig.cameras.position.shape[0])
     metrics = dict(step16_kernels_s=kernels_s, step16_default_pyramid_s=default_s, step16_tpu_pyramid_s=tpu_s,
                    step16_level0_median_rel_err=med, step16_level0_differing_share=differ,
-                   step16_level0_share_apart_1pct=apart,
+                   step16_level0_share_apart_1pct=apart, step16_level0_digests=digests,
+                   step16_ftheta_level0_digests=f_digests,
                    step16_windows={str(k): v for k, v in windows.items()},
                    step16_clipped_share={str(k): v for k, v in clipped.items()},
                    step16_ftheta_s=f_s, step16_ftheta_level0_median_rel_err=f_med,
@@ -2829,8 +2885,8 @@ def main(argv=None) -> int:
                         help="build the kernels, run the TPU sampler's semantics (step 16) alone, print its JSON and "
                              "stop")
     parser.add_argument("--kernel-digests", action="store_true",
-                        help="build the kernels, print the digests of the default-mode K1-K3 outputs "
-                             "(default_kernel_digests) as one JSON line and stop")
+                        help="build the kernels, print the digests of the default-mode K1-K3 outputs and the "
+                             "anchor kernel's (default_kernel_digests) as one JSON line and stop")
     parser.add_argument("--step15", action="store_true",
                         help="build the kernels, write and solve the sphere tree (steps 4-5), run the parity and "
                              "oracle checks (step 15) on it, print its JSON and stop")

@@ -356,22 +356,21 @@ def cost_for_disparity(ctx: CostContext, disparity, window=None):
 
 
 def _cost_tpu(ctx: CostContext, disp, window):
-    """cost_for_disparity through the TPU sampler (cost.py:388-431): from
-    FUSED_MIN_PIXELS up the packed path, one anchor launch (reflect-padded
-    tiles) and one K3 launch a map; below it one anchor launch and one K1
+    """cost_for_disparity through the TPU sampler (cost.py:388-431): one
+    anchor launch for all D maps, then from FUSED_MIN_PIXELS up the packed
+    path (reflect-padded tiles), one K3 launch a map; below it one K1
     launch for all D maps, K2 a map, and FLT_MAX where a non-self source
     clips the pixel (the guard the JAX package applies after its K2)."""
     d, _, h, w = ctx.dst_planar.shape
     src_hw = tuple(ctx.src_tpu.shape[1:3])
     pos, rays, params, align = ctx.cam_dst.position, ctx.dst_rays, ctx.src_params, ctx.tpu_align
-    if h * w >= FUSED_MIN_PIXELS:
-        out = []
-        for i in range(d):
-            anchors = warp_cuda.tile_windows(params, pos[i], disp[i], rays[i], src_hw, window, align, reflect=True)
-            out.append(warp_cuda.cost_fused_tpu(ctx.src_tpu, params, pos[i], disp[i], rays[i], ctx.dst_planar[i],
-                                                ctx.variance[i], ctx.exclude_idx[i], anchors, window, align))
+    fused = h * w >= FUSED_MIN_PIXELS
+    anchors = warp_cuda.tile_windows(params, pos, disp, rays, src_hw, window, align, reflect=fused)
+    if fused:
+        out = [warp_cuda.cost_fused_tpu(ctx.src_tpu, params, pos[i], disp[i], rays[i], ctx.dst_planar[i],
+                                        ctx.variance[i], ctx.exclude_idx[i], anchors[i], window, align)
+               for i in range(d)]
     else:
-        anchors = warp_cuda.tile_windows(params, pos, disp, rays, src_hw, window, align)
         sampled, valid, clipped = warp_cuda.project_sample_tpu(ctx.src_tpu, params, pos, disp, rays, anchors,
                                                                window, align)
         lanes = torch.arange(params.shape[0], device=disp.device)[:, None, None]

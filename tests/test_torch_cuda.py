@@ -401,6 +401,33 @@ def test_tile_windows_matches_twin(dev, w, h, window):
         assert ((k - p).abs() <= step).all()
 
 
+@pytest.mark.parametrize("n", [4, 15, 16, 150])
+@pytest.mark.parametrize("w,h", [(208, 49), (61, 45)])
+def test_tile_windows_all_maps_equal_one_map_launches(dev, w, h, n):
+    """The anchor kernel's one launch for all D maps equals the stack of its
+    one-map launches bit for bit, for rigs of 4, 15, 16 and 150 sources
+    (past 48 KB of shared memory a block), edge and reflect padding, 8- and
+    16-row alignment, on shapes with partial right and bottom tiles, with a
+    tile no source sees (disparity 0 there: (0, 0)) and a small window; and
+    it holds the twin to the bound of test_tile_windows_matches_twin."""
+    ctx, disp = _tpu_level(dev, w, h, n=n)
+    disp[1, :24, :min(w, 128)] = 0.0
+    args = _tpu_args(ctx, disp)
+    for reflect in (False, True):
+        for align in (8, 16):
+            wc.reset_launch_counts()
+            k = wc.tile_windows(*args, (h, w), (128, 16), align, reflect)
+            assert wc.LAUNCHES["tile_windows"] == 1
+            assert k.shape == (n, n, -(-h // 24), -(-w // 128), 2) and k.dtype == torch.int32
+            one = torch.stack([wc.tile_windows(args[0], *a, (h, w), (128, 16), align, reflect)
+                               for a in zip(*args[1:])])
+            assert torch.equal(k, one)
+            assert not k[1, :, 0, 0].any()
+            p = wc.tile_windows_plain(*args, (h, w), (128, 16), align, reflect)
+            assert (k == p).all(-1).double().mean().item() >= 0.98
+            assert ((k - p).abs() <= torch.tensor([128, align], device=dev)).all()
+
+
 @pytest.mark.parametrize("window", TPU_WINDOWS)
 @pytest.mark.parametrize("w,h", TPU_SHAPES)
 def test_project_sample_tpu_matches_twin(dev, w, h, window):
@@ -463,10 +490,10 @@ def test_cost_fused_tpu_matches_twin(dev, w, h, window):
 @pytest.mark.parametrize("w,h", [(208, 49), (512, 384)])
 def test_cost_for_disparity_tpu_mode_launches(dev, w, h):
     """cost_for_disparity on a use_pallas_sampler context launches the TPU
-    modes and never the default kernels: below 512x384 one anchor and one
-    K1 launch for all maps and K2 a map, from there up an anchor and a K3
-    launch a map; the default context's costs are those of the default
-    kernels."""
+    modes and never the default kernels: one anchor launch for all maps,
+    then below 512x384 one K1 launch for all maps and K2 a map, from there
+    up a K3 launch a map; the default context's costs are those of the
+    default kernels."""
     ctx, disp = _tpu_level(dev, w, h)
     wc.reset_launch_counts()
     cost, conf = cost_ops.cost_for_disparity(solver.cost_context(ctx), disp, window=(128, 16))
@@ -474,6 +501,6 @@ def test_cost_for_disparity_tpu_mode_launches(dev, w, h):
     if w * h < cost_ops.FUSED_MIN_PIXELS:
         want = dict(tile_windows=1, project_sample_tpu=1, ssd_combine=d)
     else:
-        want = dict(tile_windows=d, cost_fused_tpu=d)
+        want = dict(tile_windows=1, cost_fused_tpu=d)
     assert {k: v for k, v in wc.LAUNCHES.items() if v} == want
     assert (cost == FLT_MAX).any() and (cost < FLT_MAX).any()
