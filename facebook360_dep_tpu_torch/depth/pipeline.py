@@ -12,7 +12,14 @@ disparity_levels out; foreground_masks_levels and the background's
 disparity_levels with ``--use_foreground_masks``) matches the reference and
 the JAX package. The debug outputs (``--save_debug_images``, plotMatches)
 write the JAX package's files; ``--profile_dir`` writes a torch.profiler
-chrome trace with one ``record_function`` range per level.
+chrome trace with a ``derp level N`` range per level and, inside it, the
+frame job's spans (``core/spans.py``): ``derp.io.read_colors``,
+``derp.io.read_coarser``, ``derp.io.write``, ``derp.upload``,
+``derp.readback``, ``derp.stage.setup``, the solver's stages
+``derp.stage.{brute_force,proposals,ping_pong,mismatches,bilateral,median}``
+and ``derp.coverage``; ``derp.init`` lies before the levels. The same spans
+time every run, traced or not: ``level_seconds`` and the per-frame log
+line's split (io, copies, setup, search, filters) come from them.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from .. import resolve_device
 from ..core import camera as cam
 from ..core import imagetypes, io
+from ..core.spans import Record, span
 from ..ops import sampling
 from . import solver
 
@@ -196,27 +204,31 @@ class DepthEstimator:
     """Loads rig + pyramid metadata once; estimates disparity per frame/level.
 
     ``level_seconds`` holds each level's wall time (all frames, outputs
-    written) after :meth:`run`. ``device`` None means the card.
+    written) after :meth:`run`, the duration of its ``derp level N`` span;
+    ``spans`` (a :class:`..core.spans.Record`) every span's nanoseconds by
+    (frame, level). ``device`` None means the card.
     """
 
     def __init__(self, opts: DepthEstimatorOptions, *, device=None):
-        opts.resolve_paths()
-        self.opts = opts
-        self.device = resolve_device(device)
-        rig_src = cam.load_rig(opts.rig)
-        rig_dst = cam.filter_destinations(rig_src, opts.cameras)
-        self.full_height = int(rig_dst.cameras.resolution[0, 1])
-        self.rig_src = cam.normalize_rig(rig_src)
-        self.rig_dst = cam.normalize_rig(rig_dst)
+        self.spans = Record()
+        with self.spans.at(None, None), span("derp.init"):
+            opts.resolve_paths()
+            self.opts = opts
+            self.device = resolve_device(device)
+            rig_src = cam.load_rig(opts.rig)
+            rig_dst = cam.filter_destinations(rig_src, opts.cameras)
+            self.full_height = int(rig_dst.cameras.resolution[0, 1])
+            self.rig_src = cam.normalize_rig(rig_src)
+            self.rig_dst = cam.normalize_rig(rig_dst)
 
-        sizes = io.get_pyramid_level_sizes(opts.color)
-        sizes.update(io.get_pyramid_level_sizes(imagetypes.image_dir(opts.output_root, "disparity_levels")))
-        if not sizes:
-            raise FileNotFoundError(f"no pyramid levels found under {opts.color}")
-        self.level_sizes = sizes  # level -> (width, height)
-        self.num_levels = (max(sizes) + 1) if opts.num_levels == -1 else opts.num_levels
-        self.level_start = opts.level_start if opts.level_start >= 0 else self.num_levels - 1
-        self.level_end = self._resolve_level_end()
+            sizes = io.get_pyramid_level_sizes(opts.color)
+            sizes.update(io.get_pyramid_level_sizes(imagetypes.image_dir(opts.output_root, "disparity_levels")))
+            if not sizes:
+                raise FileNotFoundError(f"no pyramid levels found under {opts.color}")
+            self.level_sizes = sizes  # level -> (width, height)
+            self.num_levels = (max(sizes) + 1) if opts.num_levels == -1 else opts.num_levels
+            self.level_start = opts.level_start if opts.level_start >= 0 else self.num_levels - 1
+            self.level_end = self._resolve_level_end()
         self.level_seconds: dict[int, float] = {}
 
     def _resolve_level_end(self) -> int:
@@ -359,14 +371,16 @@ class DepthEstimator:
         """Upsampled init from level+1 outputs (DerpCLI.cpp:271-303). With
         foreground masks, ``fg_masks`` and ``bg_disp`` are this level's
         (D, H, W) masks and background maps, as the solve loaded them."""
-        coarse = [io.read_disparity(self._disparity_path(level + 1, cam_id, frame, "pfm"))
-                  for cam_id in self.rig_dst.ids]
-        if not self.opts.use_foreground_masks:
-            return torch.stack([upsample_disparity_init(torch.from_numpy(c).to(self.device), size_wh)
-                                for c in coarse])
-        mask = self.load_fg_masks(level + 1, frame, self.rig_dst)
-        up = upsample_disparity_fg(np.stack(coarse), mask, fg_masks, bg_disp, size_wh)
-        return torch.from_numpy(up).to(self.device)
+        with span("derp.io.read_coarser"):
+            coarse = [io.read_disparity(self._disparity_path(level + 1, cam_id, frame, "pfm"))
+                      for cam_id in self.rig_dst.ids]
+            mask = self.load_fg_masks(level + 1, frame, self.rig_dst) if self.opts.use_foreground_masks else None
+        with span("derp.stage.setup"):
+            if mask is None:
+                return torch.stack([upsample_disparity_init(torch.from_numpy(c).to(self.device), size_wh)
+                                    for c in coarse])
+            up = upsample_disparity_fg(np.stack(coarse), mask, fg_masks, bg_disp, size_wh)
+            return torch.from_numpy(up).to(self.device)
 
     # ---- main entry ---------------------------------------------------------
 
@@ -377,7 +391,8 @@ class DepthEstimator:
     def run(self):
         """Solve every level of every frame. With ``profile_dir`` the run is
         traced by torch.profiler (host, and the card when it runs there) and
-        the trace lands in that directory as a chrome-trace JSON."""
+        the trace lands in that directory as a chrome-trace JSON, with the
+        ``derp level N`` ranges and the spans of the module docstring."""
         if not self.opts.profile_dir:
             self._run_levels()
             return
@@ -395,18 +410,21 @@ class DepthEstimator:
 
     @torch.inference_mode()
     def _run_levels(self):
-        t0 = time.time()
+        total = 0.0
         for level in range(self.level_start, self.level_end - 1, -1):
-            with torch.profiler.record_function(f"derp level {level}"):
+            with self.spans.at(None, level), span(f"derp level {level}") as s:
                 self._run_level(level)
-            log.info("-- Elapsed time: %.2fs", time.time() - t0)
-        log.info("-- TOTAL: %.2fs", time.time() - t0)
+            self.level_seconds[level] = s.ns / 1e9
+            total += self.level_seconds[level]
+            log.info("-- Elapsed time: %.2fs", total)
+        log.info("-- TOTAL: %.2fs", total)
 
     def _run_level(self, level):
-        tl = time.time()
         size_wh = self.level_sizes[level]
         w, h = size_wh
-        fov_masks = generate_fov_masks(self.rig_dst, (h, w), self.device)
+        with span("derp.stage.setup"):
+            fov_masks = generate_fov_masks(self.rig_dst, (h, w), self.device)
+            fov_np = fov_masks.cpu().numpy()
         fast_fine = level < self.opts.fast_fine_levels
         cfg = solver.SolverConfig(
             min_depth=self.opts.min_depth_m,
@@ -425,24 +443,33 @@ class DepthEstimator:
         )
         if cfg.mismatches_start_level >= 0 and self.rig_dst.ids != self.rig_src.ids:
             raise ValueError("mismatch handling requires all cameras as destinations")
-        fov_np = fov_masks.cpu().numpy()
         for frame in self.frames():
-            tf = time.time()
+            with self.spans.at(frame, level):
+                self._run_frame(level, frame, cfg, fov_masks, fov_np)
+            split = self.spans.split(frame, level)
+            log.info("frame %s level %d (%dx%d): %.2fs (%s)", frame, level, w, h,
+                     self.spans.wall[(frame, level)] / 1e9, ", ".join(f"{g} {v:.2f} s" for g, v in split.items()))
+
+    def _run_frame(self, level, frame, cfg, fov_masks, fov_np):
+        with span("derp.io.read_colors"):
             colors_np = self.load_colors(level, frame)
             fg = bg = None
             if self.opts.use_foreground_masks:
                 fg = self.load_fg_masks(level, frame, self.rig_dst)
                 bg = self.load_bg_disp(level)
-            # The JAX package runs its windowed, quantized Pallas sampler on
-            # its own chip only (use_pallas_sampler there is "the backend is a
-            # TPU", pipeline.py:390), and the exact XLA path elsewhere. A
-            # card gathers natively, so the port keeps the exact path here;
-            # make_level_context(use_pallas_sampler=True) with
-            # SolverConfig(ww_max=, wh_max=) reproduces the TPU's maps.
+        with span("derp.upload"):
+            colors = torch.from_numpy(colors_np).to(self.device)
+        # The JAX package runs its windowed, quantized Pallas sampler on
+        # its own chip only (use_pallas_sampler there is "the backend is a
+        # TPU", pipeline.py:390), and the exact XLA path elsewhere. A
+        # card gathers natively, so the port keeps the exact path here;
+        # make_level_context(use_pallas_sampler=True) with
+        # SolverConfig(ww_max=, wh_max=) reproduces the TPU's maps.
+        with span("derp.stage.setup"):
             ctx = solver.make_level_context(
                 self.rig_src,
                 self.rig_dst,
-                torch.from_numpy(colors_np).to(self.device),
+                colors,
                 fov_masks,
                 dst_fg_masks=None if fg is None else torch.from_numpy(fg),
                 dst_bg_disp=None if bg is None else torch.from_numpy(bg),
@@ -450,19 +477,20 @@ class DepthEstimator:
                 var_high_thresh=self.opts.var_high_thresh,
                 full_height=self.full_height,
             )
-            # below the coarsest level, init from the coarser level's saved
-            # result (also how mid-pyramid resume works; DerpCLI.cpp:271-303)
-            init = None
-            if level < self.num_levels - 1:
-                init = self.load_coarser_disparity(level, frame, size_wh, fg, bg)
-            result = solver.process_level(ctx, cfg, init_disparity=init)
+        # below the coarsest level, init from the coarser level's saved
+        # result (also how mid-pyramid resume works; DerpCLI.cpp:271-303)
+        init = None
+        if level < self.num_levels - 1:
+            init = self.load_coarser_disparity(level, frame, self.level_sizes[level], fg, bg)
+        result = solver.process_level(ctx, cfg, init_disparity=init)
+        with span("derp.readback"):
             result = {k: v.cpu().numpy() for k, v in result.items()}
-            if level == self.num_levels - 1 or init is None:
-                # brute force ran: enforce the coverage policy
+        if level == self.num_levels - 1 or init is None:
+            # brute force ran: enforce the coverage policy
+            with span("derp.coverage"):
                 self.check_coverage(level, frame, result, fov_np)
+        with span("derp.io.write"):
             self.save_results(level, frame, result)
             if self.opts.save_debug_images:
                 self.save_debug_images(level, frame, result, fov_np)
             self.plot_matches(level, frame, result, colors_np)
-            log.info("frame %s level %d (%dx%d): %.2fs", frame, level, w, h, time.time() - tf)
-        self.level_seconds[level] = time.time() - tl

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import camera as cam
+from ..core.spans import span
 from ..ops import cost as cost_ops
 from ..ops import filters, sampling, warp_cuda
 from ..ops.cost import CostContext
@@ -489,14 +490,17 @@ def process_level(ctx: LevelContext, cfg: SolverConfig, init_disparity=None, uni
     sharded solve, ``parallel/sharding.py``), maps this context's disparity
     to every source's map in source order for the mismatch stage; None
     means the context's own maps are every source's. Returns a dict of
-    (D, H, W) disparity/cost/confidence/mismatch maps.
+    (D, H, W) disparity/cost/confidence/mismatch maps. Each stage is a
+    ``derp.stage.<name>`` span (``core/spans.py``); the median's holds the
+    FOV mask.
     """
     d = len(ctx.dst2src)
     h, w = ctx.src_imgs.shape[1:3]
     dev = ctx.src_imgs.device
     coarsest = cfg.level == cfg.num_levels - 1
     if coarsest or init_disparity is None:
-        disparity, costs, confidences = brute_force_all(ctx, cfg)
+        with span("derp.stage.brute_force"):
+            disparity, costs, confidences = brute_force_all(ctx, cfg)
     else:
         disparity = init_disparity.to(device=dev, dtype=torch.float32)
         costs = torch.full((d, h, w), math.inf, dtype=torch.float32, device=dev)
@@ -504,21 +508,27 @@ def process_level(ctx: LevelContext, cfg: SolverConfig, init_disparity=None, uni
 
     mismatch_mask = torch.zeros((d, h, w), dtype=torch.bool, device=dev)
     if not coarsest:
-        if uniforms is None and generator is None:
-            generator = level_generator(cfg, dev)
-        disparity, costs, confidences = random_proposals(
-            ctx, cfg, disparity, costs, confidences, uniforms=uniforms, generator=generator)
-        disparity, costs, confidences = ping_pong(ctx, cfg, disparity, costs, confidences)
+        with span("derp.stage.proposals"):
+            if uniforms is None and generator is None:
+                generator = level_generator(cfg, dev)
+            disparity, costs, confidences = random_proposals(
+                ctx, cfg, disparity, costs, confidences, uniforms=uniforms, generator=generator)
+        with span("derp.stage.ping_pong"):
+            disparity, costs, confidences = ping_pong(ctx, cfg, disparity, costs, confidences)
         if 0 <= cfg.level <= cfg.mismatches_start_level:
-            full = None if gather is None else gather(disparity)
-            disparity, mismatch_mask = handle_mismatches(ctx, cfg, disparity, full)
+            with span("derp.stage.mismatches"):
+                full = None if gather is None else gather(disparity)
+                disparity, mismatch_mask = handle_mismatches(ctx, cfg, disparity, full)
 
     if cfg.do_bilateral_filter:
-        disparity = spatial_bilateral(ctx, cfg, disparity)
-    if cfg.do_median_filter:
-        disparity = median_filter(ctx, cfg, disparity)
+        with span("derp.stage.bilateral"):
+            disparity = spatial_bilateral(ctx, cfg, disparity)
+    with span("derp.stage.median"):
+        if cfg.do_median_filter:
+            disparity = median_filter(ctx, cfg, disparity)
+        disparity = mask_fov(ctx, disparity)
     return {
-        "disparity": mask_fov(ctx, disparity),
+        "disparity": disparity,
         "cost": costs,
         "confidence": confidences,
         "mismatches": mismatch_mask,
