@@ -12,12 +12,15 @@
    with 1 over a NaN-holding disparity stack; K3 at 2048, 1024 and 512;
    K3 also against K1 -> K2 bit for bit, and below K3 the solver's batched
    cost_for_disparity against its 16 single-destination calls bit for
-   bit), and times each there two ways with CUDA events: ``ms``, one
+   bit; the joint bilateral kernel on all 16 maps at each of the ten
+   levels and its radius, against its per-map twin bit for bit), and
+   times each there two ways with CUDA events: ``ms``, one
    launch from the host as the solve makes it, and ``graph_ms``, the
    device time of one launch inside a CUDA graph, which leaves the host's
    launch cost out; beside them the roofline bound from the bytes and
-   FLOPs of its shapes and the share bound / graph_ms; the twins are timed
-   at 256x192 and 2048x1536;
+   FLOPs of its shapes (the joint bilateral's: its bytes, FP32 operations
+   and expf against the memory, FP32 issue and SFU rates) and the share
+   bound / graph_ms; the twins are timed at 256x192 and 2048x1536;
 4. renders the 16-camera sphere scene (the JAX bench's config 2 rig) at the
    ten pyramid widths 2048..50 with the port, writes it as a project tree,
    and runs the port's derp_cli on it with default solver flags;
@@ -26,7 +29,7 @@
    launches it counted at each level shape complete the per-level table
    (launches a solve, launches x (graph_ms - bound)), and each level must
    show the batched solve's count (K1 11 at each of 256..60 and 150 at 50,
-   K2 16 times that, K3 176 at each of its levels);
+   K2 16 times that, K3 176 at each of its levels, the joint bilateral 1);
 6. holds K4 (warp_sample) against its twin on the render gather of one
    cubemap at face 1536: the 16 cameras' level-0 colors and derp_cli's
    disparity (with a NaN patch) sampled at the coordinates render_view
@@ -356,6 +359,13 @@ FP32_FLOP_PER_S = 67e12
 PARAM_BYTES = 24 * 4  # one packed source camera
 
 
+# unfused FP32 instructions a second (128 lanes a clock an SM; the peak
+# above counts an FMA as two operations) and expf results a second
+# (MUFU.EX2, 16 a clock an SM), at the peak's 132 SMs and 1.98 GHz
+FP32_ISSUE_PER_S = FP32_FLOP_PER_S / 2
+SFU_PER_S = 132 * 16 * 1.98e9
+
+
 def k1_flops(c: int) -> int:
     """FLOPs per (destination pixel, source) of K1: the projection (world
     point, rotation, norms, distortion, focal, FOV cone and sensor tests)
@@ -404,6 +414,31 @@ def k3_work(n, hs, ws, h, w):
             (n - 1) * hw * (k1_flops(3) + k2_flops(3)))
 
 
+def jb_radius(level: int) -> int:
+    """The solver's bilateral radius at a level (solver.spatial_bilateral)."""
+    return max(math.ceil(5 * 0.9 ** level), 1)
+
+
+def jb_work(d, h, w, radius):
+    """(bytes, FP32 operations, expf) of one joint_bilateral launch: each
+    map's source colors (RGB), disparity and mask read once and its output
+    written once; a tap 15 FP32 operations (3 differences, 3 squares, the
+    blue weight, 2 sums, the products by 1/3 and 1/(2 sigma^2), the mask
+    product, the weight x value and 2 accumulations) and one expf."""
+    px = d * h * w
+    taps = px * (2 * radius + 1) ** 2
+    return 21 * px, 15 * taps, taps
+
+
+def jb_roofline(nbytes: float, ops: float, exps: float):
+    """(bound ms, what binds): the largest of the bytes over the memory
+    rate, the FP32 operations over the issue rate and the expf over the
+    SFU rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "FP32 issue": ops / FP32_ISSUE_PER_S, "SFU": exps / SFU_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def k4_work(n, c, hs, ws, h, w):
     """Sources and coordinates read once, samples and validity written once;
     taps and weights 8 FLOPs a point, a lerp of 6 per channel."""
@@ -429,11 +464,12 @@ def graph_time_ms(fn, inner: int, reps: int = 7) -> float:
     return ms
 
 
-def level_row(name, h, w, fn, work, reps, inner):
-    """One row of the per-level table; ``fn()`` launches the kernel once."""
+def level_row(name, h, w, fn, work, reps, inner, bound_of=roofline):
+    """One row of the per-level table; ``fn()`` launches the kernel once;
+    ``bound_of(*work)`` is its (bound ms, what binds)."""
     ms = cuda_time_ms(fn, reps)
     graph_ms = graph_time_ms(fn, inner)
-    bound_ms, bound_by = roofline(*work)
+    bound_ms, bound_by = bound_of(*work)
     row = dict(shape=f"{w}x{h}", h=h, w=w, ms=ms, graph_ms=graph_ms, bound_ms=bound_ms, bound_by=bound_by,
                share=bound_ms / graph_ms)
     log(f"  {name} {w}x{h}: {ms:.4f} ms a launch, {graph_ms:.4f} ms in a graph, bound {bound_ms:.4f} ms "
@@ -451,9 +487,10 @@ def count_level_launches(checks, by_shape, totals):
     """Fill each per-level row's launches a solve from the solve's counts
     by (kernel, H, W), and launches x (graph_ms - bound). Raises unless
     every level saw the launches the batched solve makes there (K1 one a
-    cost evaluation of all 16 maps, K2 and K3 one a map and evaluation) and
-    no launch fell outside the table."""
-    for name in ("project_sample", "ssd_combine", "cost_fused"):
+    cost evaluation of all 16 maps, K2 and K3 one a map and evaluation, the
+    joint bilateral one for all maps) and no launch fell outside the
+    table."""
+    for name in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral"):
         rows = checks[name]["levels"]
         for row in rows:
             row["launches_per_solve"] = n = by_shape.get((name, row["h"], row["w"]), 0)
@@ -461,7 +498,7 @@ def count_level_launches(checks, by_shape, totals):
             log(f"  {name} {row['shape']}: {n} launches a solve, launches x (graph_ms - bound) "
                 f"{row['lost_ms_per_solve']:.2f} ms")
             evals = NUM_DEPTHS if row["w"] == WIDTHS[-1] else EVALS_FINE
-            want = evals if name == "project_sample" else NUM_CAMERAS * evals
+            want = 1 if name == "joint_bilateral" else evals if name == "project_sample" else NUM_CAMERAS * evals
             if n != want:
                 raise AssertionError(f"{name}: {n} launches at {row['shape']}, expected {want}")
         counted = sum(row["launches_per_solve"] for row in rows)
@@ -474,7 +511,8 @@ def check_kernels(dev):
     every level shape the sphere solve launches them at (K3 from 512x384
     up, K1 and K2 below), each timed with CUDA events and set against its
     roofline: K1 as one launch sampling all 16 destination maps, K2 and K3
-    as one launch for one map.
+    as one launch for one map; then the joint bilateral kernel, one launch
+    for all 16 maps, against its twin bit for bit at every level.
     Below K3 the solver's batched cost must equal the 16 single-destination
     calls bit for bit. Tolerances: the kernels and twins round every
     product alike (-fmad=false); what is left is atan2f/sqrt/exp last-ulp
@@ -488,7 +526,8 @@ def check_kernels(dev):
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
     flt_max = cost_ops.FLT_MAX
-    results = {k: dict(max_abs_err=0.0, levels=[]) for k in ("project_sample", "ssd_combine", "cost_fused")}
+    results = {k: dict(max_abs_err=0.0, levels=[])
+               for k in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral")}
 
     def record(name, err, row):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -600,6 +639,42 @@ def check_kernels(dev):
         del ctx, cctx, c_k, f_k, c_12, f_12, k3_args
         torch.cuda.empty_cache()
     results["cost_fused"]["bit_identical_to_k1_k2"] = True  # at every level: a difference raises above
+
+    # ---- the joint bilateral of a level: all 16 maps in one launch, at each
+    # level's radius, masked by the FOV as derp_cli's solve masks them ----
+    log("joint_bilateral (16 maps a launch), every level of the solve at its radius:")
+    for level, width in enumerate(WIDTHS):
+        ctx, disp, gt, fov = level_inputs(width, dev)
+        d, h, w = disp.shape
+        radius = jb_radius(level)
+        jb_args = (ctx.src_rgba, ctx.dst2src, disp, fov, radius)
+        k = wc.joint_bilateral(*jb_args)
+        p = wc.joint_bilateral_plain(*jb_args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(k.view(torch.int32), p.view(torch.int32)))
+        log(f"  joint_bilateral {w}x{h} radius {radius} bit-identical to its twin: {same}")
+        if not same:
+            compare(f"joint_bilateral {w}x{h}", k, p, 0.0, 0.0, 0.0)
+        row = level_row("joint_bilateral (16 maps)", h, w, lambda: wc.joint_bilateral(*jb_args),
+                        jb_work(d, h, w, radius), 20, 20, bound_of=jb_roofline)
+        row["radius"] = radius
+        record("joint_bilateral", 0.0, row)
+        if width in (TWIN_WIDTH, WIDTHS[0]):  # the plain twin, 16 maps, at 256x192 and at full width
+            pms = cuda_time_ms(lambda: wc.joint_bilateral_plain(*jb_args), 3, warmup=1)
+            log(f"  plain twin at {w}x{h}: {pms:.4f} ms (16 maps)")
+            if width == TWIN_WIDTH:
+                results["joint_bilateral"].update(plain_ms_256=pms, ms_256=row["ms"], graph_ms_256=row["graph_ms"])
+            else:
+                results["joint_bilateral"].update(ms=row["ms"], graph_ms=row["graph_ms"], plain_ms=pms,
+                                                  shape=f"{w}x{h}", maps_a_call=d)
+        del ctx, disp, gt, fov, k, p, jb_args
+        torch.cuda.empty_cache()
+    jb = results["joint_bilateral"]
+    jb["bit_identical_to_twin"] = True  # at every level: a difference raises above
+    jb["graph_ms_a_solve"] = sum(row["graph_ms"] for row in jb["levels"])
+    jb["bound_ms_a_solve"] = sum(row["bound_ms"] for row in jb["levels"])
+    log(f"  joint_bilateral over the ten levels: {jb['graph_ms_a_solve']:.4f} ms in graphs, bound "
+        f"{jb['bound_ms_a_solve']:.4f} ms, share {100 * jb['bound_ms_a_solve'] / jb['graph_ms_a_solve']:.1f}%")
     for name, r in results.items():
         top = next(row for row in r["levels"] if row["shape"] == r["shape"])
         r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
@@ -2985,7 +3060,7 @@ def main(argv=None) -> int:
         log(f"scene rendered and written ({len(WIDTHS)} levels x {NUM_CAMERAS} cameras): {time.time() - t:.1f} s")
         out_root = os.path.join(root, "out")
         total, est, launches, by_shape = run_solve(root, out_root, args.profile, dev)
-        missing = [k for k in ("project_sample", "ssd_combine", "cost_fused") if launches[k] <= 0]
+        missing = [k for k in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral") if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched by the main path: {missing}")
         count_level_launches(checks, by_shape, launches)
@@ -3041,19 +3116,21 @@ def main(argv=None) -> int:
     sources = {"project_sample": ("project_sample.cu", 902),
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
-               "warp_sample": ("warp_sample.cu", 153)}
+               "warp_sample": ("warp_sample.cu", 153),
+               "joint_bilateral": ("joint_bilateral.cu", None)}
     kernels = []
     for name, (src, line) in sources.items():
         chain_counts = {stage: counts[name] for stage, counts in chain_launches.items() if counts[name]}
-        entry = dict(name=name, route="cuda", source=f"{CSRC}/{src}",
-                     replaces=f"{WARP_PALLAS}:{line}", launches=launches[name], **checks[name],
-                     chain_launches=chain_counts)
+        replaces = (f"{WARP_PALLAS}:{line}" if line else
+                    "none: the JAX package's XLA filter (facebook360_dep_tpu/ops/filters.py:39-69)")
+        entry = dict(name=name, route="cuda", source=f"{CSRC}/{src}", replaces=replaces, launches=launches[name],
+                     **checks[name], chain_launches=chain_counts)
         if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback, step 13
             entry["phase_launches"] = dict(rephotography=launches[name], eqrcolor=render["eqrcolor_k4_launches"],
                                            tbstereo=render["tbstereo_k4_launches"], playback=k4_playback,
                                            occluder_rephotography=step13_launches["occluder_rephotography"],
                                            step15=step15_launches[name])
-        else:  # K1-K3 in step 13's solves, K1 in geometric_consistency, and step 14's ranks
+        else:  # K1-K3 and the joint bilateral in step 13's solves, K1 in geometric_consistency, step 14's ranks
             entry["phase_launches"] = {phase: step13_launches[phase][name]
                                        for phase in ("occluder_solve", "ftheta_solve")}
             if name == "project_sample":

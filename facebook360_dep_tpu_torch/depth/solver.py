@@ -13,8 +13,8 @@ the JAX package's ``lax.map`` over them: the matching cost of each set of
 candidate maps is one :func:`..ops.cost.cost_for_disparity` call, which is
 where the CUDA kernels run, and the mismatch stage samples every map in one
 K1 launch. Each batched stage gives the bits of the same stage run on each
-destination alone. The bilateral and median filters still run one
-destination at a time.
+destination alone. The bilateral filters all destinations in one launch
+of its kernel; the median filter still runs one destination at a time.
 
 A context built with ``use_pallas_sampler=True`` carries the TPU sampler's
 stack, and every stage that samples the sources then runs the semantics of
@@ -449,16 +449,14 @@ def _replace_mismatches(ctx: LevelContext, disp, d_srcs, valid, dsts: slice):
 
 def spatial_bilateral(ctx: LevelContext, cfg: SolverConfig, disparity):
     """Color-guided joint bilateral on disparity; the radius shrinks coarse
-    to fine by kLevelScale (Derp.cpp:875-902)."""
+    to fine by kLevelScale (Derp.cpp:875-902). All the context's maps in
+    one launch (warp_cuda.joint_bilateral), each guided by its source's
+    colors in the interleaved stack; a pixel outside fov & fg passes
+    through, so outside fg each map keeps its disparity."""
     scale = cost_ops.LEVEL_SCALE ** cfg.level
     radius = max(math.ceil(filters.BILATERAL_SPACE_RADIUS_MAX * scale), filters.BILATERAL_SPACE_RADIUS_MIN)
-    out = []
-    for i in range(disparity.shape[0]):
-        color = ctx.src_imgs[ctx.dst2src[i]]
-        mask = ctx.dst_fov_masks[i] & ctx.dst_fg_masks[i]
-        filtered = filters.joint_bilateral(disparity[i], color[..., :3], mask, radius)
-        out.append(torch.where(ctx.dst_fg_masks[i], filtered, disparity[i]))
-    return torch.stack(out)
+    return warp_cuda.joint_bilateral(ctx.src_rgba, ctx.dst2src, disparity.contiguous(),
+                                     ctx.dst_fov_masks & ctx.dst_fg_masks, radius)
 
 
 def median_filter(ctx: LevelContext, cfg: SolverConfig, disparity):

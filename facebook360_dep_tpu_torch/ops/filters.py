@@ -4,7 +4,9 @@ Joint bilateral, temporal bilateral and masked median
 (``TemporalBilateralFilter.h:39-215``, ``util/CvUtil.h:336-385``) as loops
 over window offsets of whole-image tensor ops. Each filter edge-pads its
 inputs once and reads every offset as a view of the padded tensor, which is
-``_shift`` without a copy per tap.
+``_shift`` without a copy per tap. The solver filters all of a level's maps
+in one launch of ``warp_cuda.joint_bilateral``, whose plain twin is
+:func:`joint_bilateral` a map at a time.
 """
 
 from __future__ import annotations

@@ -14,10 +14,14 @@ wrapper                        replaces (TPU kernel)                       sourc
 ``project_sample_tpu``         ``project_sample_planar_v4`` (colors)       ``csrc/project_sample.cu``
 ``project_sample_planes_tpu``  ``project_sample_planar_v4`` (1-2 planes)   ``csrc/project_sample.cu``
 ``cost_fused_tpu``             ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
+``joint_bilateral``            none (the XLA filter, ``ops/filters.py``)   ``csrc/joint_bilateral.cu``
 =============================  ==========================================  ==========================
 
 The first four carry the depth solve; ``warp_sample_planar`` carries the
-render gather (``render/dibr.py::render_view``).
+render gather (``render/dibr.py::render_view``); ``joint_bilateral`` filters
+all of a level's disparity maps in one launch (the solver's bilateral
+stage), where the JAX package runs ``filters.joint_bilateral``'s XLA ops a
+map at a time.
 
 Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch twin on CPU tensors; there is no fallback from one to the other.
@@ -41,13 +45,15 @@ product and sum of such a sample is exact in float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from ..core import camera as cam
 from . import _build
 from . import cost as cost_ops
-from . import sampling
+from . import filters, sampling
 
 # packed per-source camera parameters (warp_pallas.py:269-300)
 PARAM_POS = 0        # 3: position
@@ -72,7 +78,7 @@ V4_WINDOW_W = 256
 # kernel launches since the last reset_launch_counts(), in all and by
 # (kernel, H, W) of the output
 LAUNCHES = {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
-            "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0}
+            "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
 LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
 
 
@@ -161,6 +167,14 @@ def warp_sample_planar_plain(src_planar, coords):
         for i in range(src_planar.shape[0])
     ])
     return torch.where(valid[:, None], sampled, 0.0), valid
+
+
+def joint_bilateral_plain(src_rgba, dst2src, disparity, mask, radius: int):
+    """The joint bilateral kernel's twin: filters.joint_bilateral of each
+    map, guided by its source's colors in the interleaved stack, one map
+    at a time, stacked."""
+    return torch.stack([filters.joint_bilateral(disparity[i], src_rgba[s, ..., :3], mask[i], radius)
+                        for i, s in enumerate(dst2src)])
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +615,43 @@ def cost_fused_tpu(src_rgba, params, dst_position, disparity, rays, dst_planar, 
                 disparity.data_ptr(), rays.data_ptr(), dst_planar.data_ptr(), variance.data_ptr(),
                 h, w, int(exclude_idx), anchors.data_ptr(), ww, wh, cost.data_ptr(), conf.data_ptr())
     return cost, conf
+
+
+# the most maps a joint_bilateral launch takes (csrc/joint_bilateral.cu:
+# their sources' indices travel by value)
+JB_MAX_MAPS = 512
+
+
+def joint_bilateral(src_rgba, dst2src, disparity, mask, radius: int):
+    """The color-guided joint bilateral (filters.joint_bilateral) of D
+    disparity maps in one launch, each guided by its source's colors,
+    read in place from the interleaved stack.
+
+    src_rgba (N, H, W, 4) (:func:`rgba_stack`); dst2src D ints, each map's
+    source; disparity (D, H, W) f32; mask (D, H, W) bool, the pixels that
+    are filtered and that weigh (the others pass through); radius 1..5 ->
+    (D, H, W) f32, the bits of :func:`joint_bilateral_plain`. D is at most
+    JB_MAX_MAPS."""
+    n, h, w = src_rgba.shape[:3]
+    d = len(dst2src)
+    dev = src_rgba.device
+    _check("src_rgba", src_rgba, dev, (n, h, w, 4))
+    _check("disparity", disparity, dev, (d, h, w))
+    _check("mask", mask, dev, (d, h, w), torch.bool)
+    if not filters.BILATERAL_SPACE_RADIUS_MIN <= radius <= filters.BILATERAL_SPACE_RADIUS_MAX:
+        raise ValueError(f"joint_bilateral: radius {radius}, expected 1..5")
+    if not all(0 <= s < n for s in dst2src):
+        raise ValueError(f"joint_bilateral: dst2src {tuple(dst2src)} outside the {n} sources")
+    if not 1 <= d <= JB_MAX_MAPS:
+        raise ValueError(f"joint_bilateral: {d} maps, expected 1..{JB_MAX_MAPS}")
+    if not src_rgba.is_cuda:
+        return joint_bilateral_plain(src_rgba, dst2src, disparity, mask, radius)
+    out = torch.empty_like(disparity)
+    with torch.cuda.device(dev):
+        _launch("joint_bilateral", (h, w), _build.load().fdt_joint_bilateral,
+                src_rgba.data_ptr(), n, h, w, (ctypes.c_int * d)(*(int(s) for s in dst2src)), d,
+                disparity.data_ptr(), mask.data_ptr(), int(radius), out.data_ptr())
+    return out
 
 
 def warp_sample_planar(src_planar, coords):

@@ -6,6 +6,8 @@ has no JAX, which tests/conftest.py imports, so run them there with:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 from facebook360_dep_tpu_torch.core import camera as tcam
 from facebook360_dep_tpu_torch.depth import pipeline, solver
 from facebook360_dep_tpu_torch.ops import cost as cost_ops
+from facebook360_dep_tpu_torch.ops import filters
 from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 from facebook360_dep_tpu_torch.render import dibr, synthetic
 
@@ -172,7 +175,7 @@ def test_wrappers_validate_and_count(inputs):
     wc.project_sample(*_k1(cctx, disp, rgba))
     wc.project_sample_plain(*_k1(cctx, disp, planes))
     assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
-                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0}
+                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
     assert wc.LAUNCHES_BY_SHAPE == {("project_sample", *disp.shape): 1}
     with pytest.raises(ValueError, match="contiguous"):
         wc.project_sample(*_k1(cctx, disp.t().contiguous().t(), rgba))
@@ -266,7 +269,7 @@ def test_cost_for_disparity_batched_equals_single_destinations(dev, w, h):
         cost, conf = cost_ops.cost_for_disparity(solver.cost_context(ctx), hyp)
         assert wc.LAUNCHES == {"project_sample": 0 if fused else 1, "ssd_combine": 0 if fused else 16,
                                "cost_fused": 16 if fused else 0, "warp_sample": 0,
-                               "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0}
+                               "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
         assert (cost < FLT_MAX).double().mean().item() > 0.5
         for d in range(16):
             one = solver.cost_context(solver.select_destinations(ctx, [d]))
@@ -305,6 +308,136 @@ def test_handle_mismatches_batched_equals_one_destination_contexts(dev, monkeypa
                                            full_disparity=disp)
         assert torch.equal(new[d:d + 1].nan_to_num(-1.0), one.nan_to_num(-1.0)) and torch.equal(replace[d:d + 1], r1), d
 
+
+
+# The joint bilateral kernel (csrc/joint_bilateral.cu) at every level shape
+# of the benchmark's two configurations, sphere16 (heights (3w + 2) // 4)
+# and ftheta16 (round(w * 2160 / 3360)), each at its level's radius.
+JB_WIDTHS = [2048, 1024, 512, 256, 200, 128, 100, 80, 60, 50]
+JB_FTHETA_HEIGHTS = [1317, 658, 329, 165, 129, 82, 64, 51, 39, 32]
+JB_SHAPES = ([(w, (3 * w + 2) // 4, level) for level, w in enumerate(JB_WIDTHS)]
+             + [(w, h, level) for level, (w, h) in enumerate(zip(JB_WIDTHS, JB_FTHETA_HEIGHTS))])
+
+
+def _bits(a, b) -> bool:
+    """Bit-for-bit equality of float32 maps (NaN payloads included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _jb_radius(level: int) -> int:
+    return max(math.ceil(filters.BILATERAL_SPACE_RADIUS_MAX * cost_ops.LEVEL_SCALE ** level),
+               filters.BILATERAL_SPACE_RADIUS_MIN)
+
+
+def _jb_mask(ctx, seed):
+    """The FOV masks cut to an image circle (as an FTHETA rig's) and holed
+    by a foreground mask."""
+    d, h, w = ctx.dst_fov_masks.shape
+    dev = ctx.dst_fov_masks.device
+    yy = torch.arange(h, device=dev)[:, None] + 0.5 - h / 2
+    xx = torch.arange(w, device=dev)[None, :] + 0.5 - w / 2
+    circle = (xx / (0.5 * w)) ** 2 + (yy / (0.5 * w)) ** 2 < 1.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return ctx.dst_fov_masks & circle & (torch.rand((d, h, w), generator=gen, device=dev) > 0.2)
+
+
+def _per_map_stage(ctx, cfg, disparity):
+    """The bilateral stage a map at a time, as the solver ran it before its
+    kernel: filters.joint_bilateral guided by src_imgs, then
+    where(fg, filtered, disparity)."""
+    radius = _jb_radius(cfg.level)
+    return torch.stack([
+        torch.where(ctx.dst_fg_masks[i],
+                    filters.joint_bilateral(disparity[i], ctx.src_imgs[s][..., :3],
+                                            ctx.dst_fov_masks[i] & ctx.dst_fg_masks[i], radius),
+                    disparity[i])
+        for i, s in enumerate(ctx.dst2src)])
+
+
+@pytest.mark.parametrize("w,h,level", JB_SHAPES)
+def test_joint_bilateral_bit_equal_to_twin_at_level_shapes(dev, w, h, level):
+    """All 16 maps of a level in one launch equal the per-map twin run on
+    the card bit for bit, at every level shape and radius of both
+    configurations, on image-circle masks with holes."""
+    ctx, disp = _level_all(dev, w, h)
+    mask = _jb_mask(ctx, w + h)
+    radius = _jb_radius(level)
+    wc.reset_launch_counts()
+    k = wc.joint_bilateral(ctx.src_rgba, ctx.dst2src, disp, mask, radius)
+    assert wc.LAUNCHES["joint_bilateral"] == 1 and wc.LAUNCHES_BY_SHAPE == {("joint_bilateral", h, w): 1}
+    p = wc.joint_bilateral_plain(ctx.src_rgba, ctx.dst2src, disp, mask, radius)
+    torch.cuda.synchronize()
+    assert _bits(k, p)
+    assert not torch.equal(k[mask], disp[mask]) and _bits(k[~mask], disp[~mask])
+
+
+@pytest.mark.parametrize("w,h", [(61, 45), (512, 384)])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 5])
+def test_joint_bilateral_every_radius_with_nonfinite_taps(dev, w, h, radius):
+    """Every radius on 16 maps, with NaN and infinite disparities under
+    masked-out taps (each adds 0 x its value: NaN in the kernel as in the
+    twin) and at masked-out centres (passed through), bit for bit."""
+    ctx, disp = _level_all(dev, w, h)
+    mask = _jb_mask(ctx, radius)
+    gen = torch.Generator(device=dev).manual_seed(radius)
+    u = torch.rand(disp.shape, generator=gen, device=dev)
+    disp = torch.where(~mask & (u < 0.03), float("nan"), disp)
+    disp = torch.where(~mask & (u > 0.99), float("inf"), disp)
+    disp = torch.where(~mask & (u > 0.985) & (u <= 0.99), float("-inf"), disp).contiguous()
+    k = wc.joint_bilateral(ctx.src_rgba, ctx.dst2src, disp, mask, radius)
+    p = wc.joint_bilateral_plain(ctx.src_rgba, ctx.dst2src, disp, mask, radius)
+    torch.cuda.synchronize()
+    assert _bits(k, p)
+    assert torch.isnan(k[mask]).any() and torch.isfinite(k[mask]).any()
+
+
+def test_spatial_bilateral_on_a_block_context_on_the_card(dev):
+    """A rank's block of a level (make_level_context(destinations=), the
+    sharded solve's): its 3 maps guided by their sources among all 16, in
+    one launch, as the whole level's stage and the twin give them."""
+    w, h = 61, 45
+    rig = tcam.normalize_rig(ring_rig(tcam, "", n=16, resolution=(w, h), mixed=True))
+    colors, gt = synthetic.render_sphere_scene(rig, (w, h), device=dev)
+    fov = pipeline.generate_fov_masks(rig, (h, w), dev)
+    whole = solver.make_level_context(rig, rig, colors, fov)
+    block = solver.make_level_context(rig, rig, colors, fov, destinations=[3, 7, 12])
+    disp = torch.nan_to_num(gt, nan=1e-4).contiguous()
+    cfg = solver.SolverConfig(level=3, num_levels=10)
+    wc.reset_launch_counts()
+    got = solver.spatial_bilateral(block, cfg, disp[[3, 7, 12]])
+    assert wc.LAUNCHES["joint_bilateral"] == 1
+    assert _bits(got, solver.spatial_bilateral(whole, cfg, disp)[[3, 7, 12]])
+    assert _bits(got, _per_map_stage(block, cfg, disp[[3, 7, 12]]))
+
+
+def test_process_level_launches_one_joint_bilateral(dev, monkeypatch):
+    """process_level filters its 16 maps with one joint_bilateral launch and
+    no per-map filter call."""
+    def per_map(*args, **kw):
+        raise AssertionError("filters.joint_bilateral called on the card")
+
+    ctx, disp = _level_all(dev, 61, 45)
+    monkeypatch.setattr(filters, "joint_bilateral", per_map)
+    cfg = solver.SolverConfig(min_depth=1.0, max_depth=100.0, level=1, num_levels=3)
+    wc.reset_launch_counts()
+    solver.process_level(ctx, cfg, init_disparity=disp)
+    assert wc.LAUNCHES["joint_bilateral"] == 1
+    assert {k: v for k, v in wc.LAUNCHES_BY_SHAPE.items() if k[0] == "joint_bilateral"} == {
+        ("joint_bilateral", 45, 61): 1}
+
+
+def test_2k_level_solve_equals_the_per_map_stage(dev, monkeypatch):
+    """A default level-0 solve of 16 maps at 2048x1536 (the bilateral at
+    radius 5) gives the bits of the same solve with the per-map stage in
+    its place, in every output: the maps the PFMs are written from."""
+    ctx, disp = _level_all(dev, 2048, 1536)
+    cfg = solver.SolverConfig(min_depth=1.0, max_depth=100.0, level=0, num_levels=10)
+    got = solver.process_level(ctx, cfg, init_disparity=disp)
+    monkeypatch.setattr(solver, "spatial_bilateral", _per_map_stage)
+    want = solver.process_level(ctx, cfg, init_disparity=disp)
+    for key, v in want.items():
+        assert _bits(got[key], v) if v.dtype == torch.float32 else torch.equal(got[key], v), key
+    assert torch.isfinite(got["disparity"]).double().mean().item() > 0.5
 
 
 @pytest.mark.parametrize("depth_scale", [1.0, 0.5])
