@@ -90,9 +90,10 @@ def main(argv=None) -> int:
                 for frame in c.frames:
                     args_ = (tree.cams_norm, tree.colors[frame], sizes, tree.full_height,
                              float(c.config["min_depth_m"]), float(c.config["max_depth_m"]), dev)
-                    want = ref.solve_pyramid(*args_, torch.float32, keep=(finest, coarsest))
-                    low = (ref.solve_pyramid(*args_, torch.bfloat16, keep=(finest, coarsest)) if side == "control"
-                           else ref.solve_pyramid(*args_, torch.float32, keep=(finest, coarsest), reverse_sum=True))
+                    kw = dict(keep=(finest, coarsest), **harness.reference_inputs(c, tree, frame))
+                    want = ref.solve_pyramid(*args_, torch.float32, **kw)
+                    low = (ref.solve_pyramid(*args_, torch.bfloat16, **kw) if side == "control"
+                           else ref.solve_pyramid(*args_, torch.float32, reverse_sum=True, **kw))
                     for tag, level in (("finest", finest), ("coarsest", coarsest)):
                         s = judge.off_stats(low[level], want[level], c.cell["compare"]["rel_tol"])
                         row[f"{frame}.{tag}"] = s

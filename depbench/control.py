@@ -12,29 +12,21 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
-from depbench import harness
-
-
-def write_pfm(path: str, m: np.ndarray) -> None:
-    """A map as the program writes it (top-down rows, little-endian, scale -1.0)."""
-    m = np.ascontiguousarray(m, np.float32)
-    with open(path, "wb") as f:
-        f.write(b"Pf\n" + f"{m.shape[1]} {m.shape[0]}\n".encode() + b"-1.0\n" + m.astype("<f4").tobytes())
+from depbench import harness, pngio
 
 
 def solve(c, tree, out: str, frame: str, device, dtype=torch.bfloat16) -> dict:
     """The reference in ``dtype`` solves ``frame`` and writes the judged levels' maps into ``out``."""
     ref = harness.load_module(os.path.join(harness.BASE, "reference", c.cell["reference"] + ".py"))
-    colors = tree.colors[c.frames[0] if frame == harness.WARMUP_FRAME else frame]
-    maps = ref.solve_pyramid(tree.cams_norm, colors, {lv: c.size(lv) for lv in c.levels}, tree.full_height,
-                             float(c.config["min_depth_m"]), float(c.config["max_depth_m"]), device, dtype,
-                             keep=c.judged)
+    solved = c.frames[0] if frame == harness.WARMUP_FRAME else frame
+    maps = ref.solve_pyramid(tree.cams_norm, tree.colors[solved], {lv: c.size(lv) for lv in c.levels},
+                             tree.full_height, float(c.config["min_depth_m"]), float(c.config["max_depth_m"]),
+                             device, dtype, keep=c.judged, **harness.reference_inputs(c, tree, solved))
     for level, m in maps.items():
         for i, cid in enumerate(tree.ids):
             d = os.path.join(out, "disparity_levels", f"level_{level}", cid)
             os.makedirs(d, exist_ok=True)
-            write_pfm(os.path.join(d, f"{frame}.pfm"), m[i])
+            pngio.write_pfm(os.path.join(d, f"{frame}.pfm"), m[i])
     return {lv: 0.0 for lv in c.levels}

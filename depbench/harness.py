@@ -10,7 +10,9 @@ A run:
 
 1. set-up: renders the cell's distinct frames of the scene on the device
    from ``--seed``, writes them as a project tree of 16-bit PNGs (host
-   threads) with the rig file, and runs one warm-up job on a frame name the
+   threads) with the rig file and the input layers the cell lists
+   (``inputs``: foreground masks a frame, the background plate's
+   disparity), and runs one warm-up job on a frame name the
    window does not use, which builds the program's kernels on a checkout's
    first run and warms every shape the cell uses; then deletes the warm-up's
    output and flushes the tree to disk, so that no writeback of set-up's
@@ -56,6 +58,16 @@ WORK = os.path.join(ROOT, "_depbench_work")
 FORBIDDEN = ("jax", "jaxlib", "flax", "facebook360_dep_tpu")
 WARMUP_FRAME = "000000"
 GIB = float(1 << 30)
+# The input layers a cell may list beside the colours: image type -> (its
+# directory, frozen from facebook360_dep_tpu_torch/core/imagetypes.py:16,37;
+# its file type). Masks are 8-bit grey PNGs, 255 inside (what resize_images
+# --threshold 0.5 writes), maps are PFMs.
+INPUT_LAYERS = {"foreground_masks_levels": ("video/foreground_masks_levels", "png"),
+                "background_disp_levels": ("background/disparity_levels", "pfm")}
+# Layers of one plate for the whole tree, written under DerpCLI's default
+# --background_frame (the warm-up frame's name, in another directory).
+PLATE_INPUTS = {"background_disp_levels"}
+PLATE_FRAME = "000000"
 
 
 def log(msg: str) -> None:
@@ -96,6 +108,11 @@ class Cell:
         return [f"{k:06d}" for k in range(1, self.cell["distinct_frames"] + 1)]
 
     @property
+    def inputs(self) -> list[str]:
+        """The input layers the scene makes beside the colours (image types of ``INPUT_LAYERS``)."""
+        return list(self.cell.get("inputs", []))
+
+    @property
     def levels(self) -> list[int]:
         return sorted(self.cell["levels_written"])
 
@@ -125,6 +142,14 @@ def find_cell(name: str, bench: dict, data: str = BASE) -> Cell:
     cell = load_json(os.path.join(data, "cells", name + ".json"))
     if (cell["config"], cell["traffic"]) != (wl[0]["config"], wl[0]["traffic"]):
         raise ValueError(f"cells/{name}.json disagrees with BENCHMARK.json on its config or traffic")
+    if cell["frames_per_job"] != 1:
+        # a job solves one frame (``solve`` passes first == last), so frame_s would read too fast
+        raise ValueError(f"cells/{name}.json: frames_per_job {cell['frames_per_job']}, but a job solves one "
+                         "frame; jobs of several frames (sphere16.chunk8) need the harness to pass --last")
+    unknown = set(cell.get("inputs", [])) - set(INPUT_LAYERS)
+    if unknown:
+        raise ValueError(f"cells/{name}.json: unknown inputs {sorted(unknown)}; "
+                         f"the harness writes {sorted(INPUT_LAYERS)}")
     return Cell(name, bench, wl[0], cell, load_json(os.path.join(data, "configs", cell["config"] + ".json")))
 
 
@@ -138,6 +163,24 @@ class Tree:
     full_height: int
     colors: dict  # frame -> level -> (N, H, W, 3) uint16, the values the PNGs hold
     truth: dict  # frame -> (N, H, W) true disparity at the finest level written
+    # image type -> frame (PLATE_FRAME for a plate's layer) -> level -> (N, H, W)
+    # bool masks or float32 maps, the values the files hold
+    inputs: dict
+
+    def inputs_of(self, frame: str) -> dict:
+        """{image type: {level: array}}: the layers a job of ``frame`` reads, masks of that frame, the plate's."""
+        return {t: by_frame[PLATE_FRAME if t in PLATE_INPUTS else frame] for t, by_frame in self.inputs.items()}
+
+
+def _write_input(pool, root: str, image_type: str, level: int, ids, frame: str, arr: np.ndarray) -> list:
+    sub, ext = INPUT_LAYERS[image_type]
+    writer = pngio.write_gray8 if ext == "png" else pngio.write_pfm
+    writes = []
+    for i, cid in enumerate(ids):
+        d = os.path.join(root, sub, f"level_{level}", cid)
+        os.makedirs(d, exist_ok=True)
+        writes.append(pool.submit(writer, os.path.join(d, f"{frame}.{ext}"), arr[i]))
+    return writes
 
 
 def make_tree(c: Cell, root: str, seed: int, device, pool) -> Tree:
@@ -168,18 +211,31 @@ def make_tree(c: Cell, root: str, seed: int, device, pool) -> Tree:
                 d = os.path.join(root, "video", "color_levels", f"level_{level}", cid)
                 os.makedirs(d, exist_ok=True)
                 writes.append(pool.submit(pngio.write_rgb16, os.path.join(d, frame + ".png"), u16[i]))
+    # the input layers: a frame's (masks) from its own frame, the plate's (the background) from frame 0
+    inputs = {t: {} for t in c.inputs}
+    frame_types = [t for t in c.inputs if t not in PLATE_INPUTS]
+    plate_types = [t for t in c.inputs if t in PLATE_INPUTS]
+    plan = [(k, frame, frame_types) for k, frame in enumerate(c.frames, start=1)] + [(0, PLATE_FRAME, plate_types)]
+    for k, frame, types in plan:
+        for level in c.levels if types else ():
+            layers = scene.render_inputs(render_cams, c.size(level), seed, k)
+            for t in types:
+                arr = layers[t].cpu().numpy().astype(bool if INPUT_LAYERS[t][1] == "png" else np.float32)
+                inputs[t].setdefault(frame, {})[level] = arr
+                writes += _write_input(pool, root, t, level, ids, frame, arr)
     for w in writes:
         w.result()
     # the warm-up job's frame: the first frame's files under a name the window does not use
-    for level in c.levels:
-        for cid in ids:
-            d = os.path.join(root, "video", "color_levels", f"level_{level}", cid)
-            src, dst = os.path.join(d, c.frames[0] + ".png"), os.path.join(d, WARMUP_FRAME + ".png")
-            try:
-                os.link(src, dst)
-            except OSError:
-                shutil.copyfile(src, dst)
-    return Tree(root, cams_norm, ids, int(cams.resolution[0, 1]), colors, truth)
+    for sub, ext in [("video/color_levels", "png")] + [INPUT_LAYERS[t] for t in frame_types]:
+        for level in c.levels:
+            for cid in ids:
+                d = os.path.join(root, sub, f"level_{level}", cid)
+                src, dst = os.path.join(d, f"{c.frames[0]}.{ext}"), os.path.join(d, f"{WARMUP_FRAME}.{ext}")
+                try:
+                    os.link(src, dst)
+                except OSError:
+                    shutil.copyfile(src, dst)
+    return Tree(root, cams_norm, ids, int(cams.resolution[0, 1]), colors, truth, inputs)
 
 
 def tree_bytes(root: str) -> int:
@@ -260,6 +316,11 @@ def traced_jobs(c: Cell, tree: Tree, work: str, device):
     return jobs, td
 
 
+def reference_inputs(c: Cell, tree: Tree, frame: str) -> dict:
+    """The keywords that hand the reference a frame's input layers: none for a cell that lists none."""
+    return {"inputs": tree.inputs_of(frame)} if c.inputs else {}
+
+
 def judge_jobs(c: Cell, tree: Tree, jobs: list[Job], device):
     """Per-job stats of the finest and the coarsest level against the
     reference, and the reference's maps ({frame: {level: (D, H, W)}})."""
@@ -270,7 +331,7 @@ def judge_jobs(c: Cell, tree: Tree, jobs: list[Job], device):
         t = time.perf_counter()
         refs[frame] = ref.solve_pyramid(tree.cams_norm, tree.colors[frame], sizes, tree.full_height,
                                         float(c.config["min_depth_m"]), float(c.config["max_depth_m"]), device,
-                                        keep=c.judged)
+                                        keep=c.judged, **reference_inputs(c, tree, frame))
         log(f"depbench: reference of frame {frame}: {time.perf_counter() - t:.2f} s")
     rel_tol = c.cell["compare"]["rel_tol"]
     stats = [{tag: judge.off_stats(j.maps[level], refs[j.frame][level], rel_tol)

@@ -1,9 +1,14 @@
-"""The files of a project tree: 16-bit PNG colors written, PFM maps read.
+"""The files of a project tree: 16-bit PNG colors and 8-bit grey masks and
+PFM maps written, PFM maps read.
 
-The PNG writer is a frozen copy of ``facebook360_dep_tpu_torch/core/png.py::encode``
-at commit 73fe11c54864db6ce32ac485256a11aec4484c40 (filter type 0 on every
-row, zlib level 1), the files the program's own resize stage writes; the
-PFM reader follows ``core/io.py::read_pfm`` (util/CvUtil.cpp:51-73).
+The PNG writers are frozen copies of ``facebook360_dep_tpu_torch/core/png.py::encode``
+(filter type 0 on every row, zlib level 1), the files the program's own
+resize stage writes: ``encode_rgb16`` at commit
+73fe11c54864db6ce32ac485256a11aec4484c40, ``encode_gray8`` (with
+``core/io.py::write_mask``'s 255 for set) at commit
+a4d7dce0f808aafcd6ca53506aa3edda7f58608e. ``write_pfm`` is a frozen copy of
+``core/io.py::write_pfm`` (util/CvUtil.cpp:39-49) at that commit; the PFM
+reader follows ``core/io.py::read_pfm`` (util/CvUtil.cpp:51-73).
 """
 
 from __future__ import annotations
@@ -36,6 +41,34 @@ def encode_rgb16(img: np.ndarray, level: int = 1) -> bytes:
 def write_rgb16(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_rgb16(img))
+
+
+def encode_gray8(mask: np.ndarray, level: int = 1) -> bytes:
+    """(H, W) bool mask -> 8-bit grey PNG bytes, 255 where set and 0 elsewhere."""
+    mask = np.asarray(mask)
+    if mask.dtype != np.bool_ or mask.ndim != 2:
+        raise ValueError(f"encode_gray8 wants an (H, W) bool mask, got {mask.shape} {mask.dtype}")
+    h, w = mask.shape
+    rows = np.zeros((h, 1 + w), np.uint8)
+    rows[:, 1:] = mask.astype(np.uint8) * np.uint8(255)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_gray8(path: str, mask: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_gray8(mask))
+
+
+def write_pfm(path: str, m: np.ndarray) -> None:
+    """An (H, W) map as the program writes it: top-down rows, little-endian, scale -1.0."""
+    m = np.ascontiguousarray(np.asarray(m, np.float32))
+    if m.ndim != 2:
+        raise ValueError(f"PFM expects a 2D float map, got {m.shape}")
+    height, width = m.shape
+    with open(path, "wb") as f:
+        f.write(b"Pf\n" + f"{width} {height}\n".encode() + b"-1.0\n" + m.astype("<f4").tobytes())
 
 
 def read_pfm(path: str) -> np.ndarray:

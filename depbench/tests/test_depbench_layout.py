@@ -77,3 +77,20 @@ def test_metric_readers_found_by_name(m):
     from depbench import harness
 
     assert callable(harness.load_module(os.path.join(harness.BASE, "metrics", m["name"] + ".py")).read)
+
+
+CELL_FILES = [os.path.join(d, f) for d in (os.path.join(helpers.ROOT, "depbench", "cells"),
+                                           os.path.join(helpers.DATA, "cells")) for f in sorted(os.listdir(d))]
+
+
+@pytest.mark.parametrize("path", CELL_FILES, ids=os.path.basename)
+def test_inputs_a_cell_lists_are_known_and_made_by_its_scene(path):
+    """Every input layer a cell lists is one the harness writes, and the scene of such a cell makes them."""
+    from depbench import harness
+
+    cell = harness.load_json(path)
+    inputs = cell.get("inputs", [])
+    assert isinstance(inputs, list) and len(set(inputs)) == len(inputs)
+    assert set(inputs) <= set(harness.INPUT_LAYERS)
+    scene = harness.load_module(os.path.join(harness.BASE, "scenes", cell["scene"] + ".py"))
+    assert callable(scene.render) and (not inputs or callable(scene.render_inputs))
