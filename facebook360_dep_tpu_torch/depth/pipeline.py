@@ -17,9 +17,15 @@ frame job's spans (``core/spans.py``): ``derp.io.read_colors``,
 ``derp.io.read_coarser``, ``derp.io.write``, ``derp.upload``,
 ``derp.readback``, ``derp.stage.setup``, the solver's stages
 ``derp.stage.{brute_force,proposals,ping_pong,mismatches,bilateral,median}``
-and ``derp.coverage``; ``derp.init`` lies before the levels. The same spans
-time every run, traced or not: ``level_seconds`` and the per-frame log
-line's split (io, copies, setup, search, filters) come from them.
+and ``derp.coverage``; ``derp.init`` lies before the levels. With
+``--use_foreground_masks`` the masks' and the background's reads are
+``derp.io.read_fg`` and the init between levels is ``derp.stage.fg_init``,
+and three counters add up, a frame and level: ``derp.fg.mask_px`` (in-mask
+pixels), ``derp.fg.hole_px`` (in-mask holes filled from the nearest valid
+pixel) and ``derp.fg.chamfer_px`` (pixels the chamfer swept). The same
+spans time every run, traced or not: ``level_seconds`` and the per-frame
+log line's split (io, copies, setup, search, filters, and the counters
+where any ran) come from them.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import torch
 from .. import resolve_device
 from ..core import camera as cam
 from ..core import imagetypes, io
-from ..core.spans import Record, span
+from ..core.spans import Record, count, span
 from ..ops import sampling
 from . import solver
 
@@ -117,6 +123,12 @@ def upsample_disparity_fg(disp, mask, mask_up, bg_disp_up, size_wh) -> np.ndarra
     mask, in-mask holes filled from the nearest valid pixel (OpenCV's
     chamfer labels, :func:`_nearest_valid_index`), the rest from the
     upsampled background disparity."""
+    return _upsample_fg(disp, mask, mask_up, bg_disp_up, size_wh)[0]
+
+
+def _upsample_fg(disp, mask, mask_up, bg_disp_up, size_wh):
+    """:func:`upsample_disparity_fg`, and the in-mask holes it filled and
+    the pixels the chamfer swept (the maps chamfered times H times W)."""
     d = np.where(mask, np.asarray(disp, np.float32), np.float32(np.nan))
     h, w = d.shape[-2:]
     w_out, h_out = (int(v) for v in size_wh)
@@ -126,13 +138,17 @@ def upsample_disparity_fg(disp, mask, mask_up, bg_disp_up, size_wh) -> np.ndarra
     valid = np.isfinite(d_up)
     invalid = ~valid & mask_up.reshape(d_up.shape)
     todo = invalid.any(axis=(1, 2)) & valid.any(axis=(1, 2))
+    holes = 0
     if todo.any():
         _, (iy, ix) = _nearest_valid_index(valid[todo])
         flat = (-1, h_out * w_out)
         fill = np.take_along_axis(d_up[todo].reshape(flat), (iy * w_out + ix).reshape(flat), 1)
-        d_up[todo] = np.where(invalid[todo], fill.reshape(-1, h_out, w_out), d_up[todo])
+        hole = invalid[todo]
+        d_up[todo] = np.where(hole, fill.reshape(-1, h_out, w_out), d_up[todo])
+        holes = np.count_nonzero(hole)
     d_up = d_up.reshape(d.shape[:-2] + (h_out, w_out))
-    return np.where(np.isfinite(d_up), d_up, np.asarray(bg_disp_up, np.float32))
+    out = np.where(np.isfinite(d_up), d_up, np.asarray(bg_disp_up, np.float32))
+    return out, holes, int(todo.sum()) * h_out * w_out
 
 
 # OpenCV's distance transform with labels (imgproc/distransform.cpp,
@@ -370,17 +386,30 @@ class DepthEstimator:
     def load_coarser_disparity(self, level, frame, size_wh, fg_masks=None, bg_disp=None) -> torch.Tensor:
         """Upsampled init from level+1 outputs (DerpCLI.cpp:271-303). With
         foreground masks, ``fg_masks`` and ``bg_disp`` are this level's
-        (D, H, W) masks and background maps, as the solve loaded them."""
+        (D, H, W) masks and background maps, as the solve loaded them.
+
+        Spans: the PFM reads are ``derp.io.read_coarser``. Without masks
+        the Lanczos upsample is ``derp.stage.setup``; with them the coarser
+        level's masks are read in ``derp.io.read_fg``, the whole of
+        :func:`upsample_disparity_fg` with its copy to the device is
+        ``derp.stage.fg_init``, and after it the counters
+        ``derp.fg.hole_px`` and ``derp.fg.chamfer_px`` add what it filled
+        and swept."""
         with span("derp.io.read_coarser"):
             coarse = [io.read_disparity(self._disparity_path(level + 1, cam_id, frame, "pfm"))
                       for cam_id in self.rig_dst.ids]
-            mask = self.load_fg_masks(level + 1, frame, self.rig_dst) if self.opts.use_foreground_masks else None
-        with span("derp.stage.setup"):
-            if mask is None:
+        if not self.opts.use_foreground_masks:
+            with span("derp.stage.setup"):
                 return torch.stack([upsample_disparity_init(torch.from_numpy(c).to(self.device), size_wh)
                                     for c in coarse])
-            up = upsample_disparity_fg(np.stack(coarse), mask, fg_masks, bg_disp, size_wh)
-            return torch.from_numpy(up).to(self.device)
+        with span("derp.io.read_fg"):
+            mask = self.load_fg_masks(level + 1, frame, self.rig_dst)
+        with span("derp.stage.fg_init"):
+            up, holes, swept = _upsample_fg(np.stack(coarse), mask, fg_masks, bg_disp, size_wh)
+            up = torch.from_numpy(up).to(self.device)
+        count("derp.fg.hole_px", holes)
+        count("derp.fg.chamfer_px", swept)
+        return up
 
     # ---- main entry ---------------------------------------------------------
 
@@ -447,16 +476,20 @@ class DepthEstimator:
             with self.spans.at(frame, level):
                 self._run_frame(level, frame, cfg, fov_masks, fov_np)
             split = self.spans.split(frame, level)
-            log.info("frame %s level %d (%dx%d): %.2fs (%s)", frame, level, w, h,
-                     self.spans.wall[(frame, level)] / 1e9, ", ".join(f"{g} {v:.2f} s" for g, v in split.items()))
+            counts = "".join(f"; {n} {v}" for n, v in sorted(self.spans.counts.get((frame, level), {}).items()))
+            log.info("frame %s level %d (%dx%d): %.2fs (%s%s)", frame, level, w, h,
+                     self.spans.wall[(frame, level)] / 1e9, ", ".join(f"{g} {v:.2f} s" for g, v in split.items()),
+                     counts)
 
     def _run_frame(self, level, frame, cfg, fov_masks, fov_np):
         with span("derp.io.read_colors"):
             colors_np = self.load_colors(level, frame)
-            fg = bg = None
-            if self.opts.use_foreground_masks:
+        fg = bg = None
+        if self.opts.use_foreground_masks:
+            with span("derp.io.read_fg"):
                 fg = self.load_fg_masks(level, frame, self.rig_dst)
                 bg = self.load_bg_disp(level)
+            count("derp.fg.mask_px", np.count_nonzero(fg))
         with span("derp.upload"):
             colors = torch.from_numpy(colors_np).to(self.device)
         # The JAX package runs its windowed, quantized Pallas sampler on
