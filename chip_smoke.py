@@ -13,14 +13,18 @@
    K3 also against K1 -> K2 bit for bit, and below K3 the solver's batched
    cost_for_disparity against its 16 single-destination calls bit for
    bit; the joint bilateral kernel on all 16 maps at each of the ten
-   levels and its radius, against its per-map twin bit for bit), and
-   times each there two ways with CUDA events: ``ms``, one
+   levels and its radius, against its per-map twin bit for bit; the
+   chamfer kernel's labels of all 16 maps at each of the ten levels, on
+   the foreground init's valid flags of the disk scene, against its
+   twin), and times each there two ways with CUDA events: ``ms``, one
    launch from the host as the solve makes it, and ``graph_ms``, the
    device time of one launch inside a CUDA graph, which leaves the host's
    launch cost out; beside them the roofline bound from the bytes and
    FLOPs of its shapes (the joint bilateral's: its bytes, FP32 operations
    and expf against the memory, FP32 issue and SFU rates) and the share
-   bound / graph_ms; the twins are timed at 256x192 and 2048x1536;
+   bound / graph_ms; the twins are timed at 256x192 and 2048x1536; the
+   chamfer's bound is its bytes, and beside it the time of one of its 2H
+   dependent row steps;
 4. renders the 16-camera sphere scene (the JAX bench's config 2 rig) at the
    ten pyramid widths 2048..50 with the port, writes it as a project tree,
    and runs the port's derp_cli on it with default solver flags;
@@ -29,7 +33,8 @@
    launches it counted at each level shape complete the per-level table
    (launches a solve, launches x (graph_ms - bound)), and each level must
    show the batched solve's count (K1 11 at each of 256..60 and 150 at 50,
-   K2 16 times that, K3 176 at each of its levels, the joint bilateral 1);
+   K2 16 times that, K3 176 at each of its levels, the joint bilateral 1,
+   the chamfer 0: that solve has no foreground masks);
 6. holds K4 (warp_sample) against its twin on the render gather of one
    cubemap at face 1536: the 16 cameras' level-0 colors and derp_cli's
    disparity (with a NaN patch) sampled at the coordinates render_view
@@ -51,7 +56,7 @@
    background's solve, temporal_bilateral_filter at level 0, upsample_disparity
    from level 1 to 2048 with color, masks and background, and an eqrcolor
    export of the filtered frame 000001. It checks that K1-K3 were launched
-   by both solves and K4 by the export, the masks' IoU against the disk's
+   by both solves, the chamfer by the foreground solve and K4 by the export, the masks' IoU against the disk's
    true coverage, and the level-0, in-disk, filtered and upsampled median
    relative errors against the composited truth (bar 0.05); then
    convert_to_binary --foreground_masks of the filtered frame 000001, whose
@@ -439,6 +444,37 @@ def jb_roofline(nbytes: float, ops: float, exps: float):
     return times[by] * 1e3, by
 
 
+def chamfer_work(d, h, w):
+    """(bytes, FLOPs) of one chamfer_labels launch on d maps: the valid
+    flags read once (1 byte a pixel), the forward pass's dist and label
+    written and read back (16), the labels written (4); no floating-point
+    operation (integer compares and adds). What binds it, each map's chain
+    of 2h dependent row steps, has no published rate to set against: step 3
+    reports the time a row step took beside the bound."""
+    return 21 * d * h * w, 0
+
+
+def chamfer_valid(rig, width: int, dev):
+    """(16, H, W) bool: the foreground init's valid flags at a level of the
+    sphere pyramid with the chain's disk at x = 0: where the disk covers the
+    level and, nearest-upsampled, the next coarser level (holes where the
+    two levels' edges disagree)."""
+    import torch
+
+    from facebook360_dep_tpu_torch.core import io
+
+    h = height(width)
+    on = render_disk_scene(rig, (width, h), 0.0, dev)[2]
+    i = WIDTHS.index(width)
+    if i + 1 < len(WIDTHS):
+        cw = WIDTHS[i + 1]
+        coarse = render_disk_scene(rig, (cw, height(cw)), 0.0, dev)[2]
+        iy = torch.from_numpy(io.nearest_index(height(cw), h)).to(dev)
+        ix = torch.from_numpy(io.nearest_index(cw, width)).to(dev)
+        on = on & coarse.index_select(1, iy).index_select(2, ix)
+    return on.contiguous()
+
+
 def k4_work(n, c, hs, ws, h, w):
     """Sources and coordinates read once, samples and validity written once;
     taps and weights 8 FLOPs a point, a lerp of 6 per channel."""
@@ -488,9 +524,9 @@ def count_level_launches(checks, by_shape, totals):
     by (kernel, H, W), and launches x (graph_ms - bound). Raises unless
     every level saw the launches the batched solve makes there (K1 one a
     cost evaluation of all 16 maps, K2 and K3 one a map and evaluation, the
-    joint bilateral one for all maps) and no launch fell outside the
-    table."""
-    for name in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral"):
+    joint bilateral one for all maps, the chamfer none: the solve has no
+    foreground masks) and no launch fell outside the table."""
+    for name in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral", "chamfer"):
         rows = checks[name]["levels"]
         for row in rows:
             row["launches_per_solve"] = n = by_shape.get((name, row["h"], row["w"]), 0)
@@ -498,7 +534,7 @@ def count_level_launches(checks, by_shape, totals):
             log(f"  {name} {row['shape']}: {n} launches a solve, launches x (graph_ms - bound) "
                 f"{row['lost_ms_per_solve']:.2f} ms")
             evals = NUM_DEPTHS if row["w"] == WIDTHS[-1] else EVALS_FINE
-            want = 1 if name == "joint_bilateral" else evals if name == "project_sample" else NUM_CAMERAS * evals
+            want = {"joint_bilateral": 1, "chamfer": 0, "project_sample": evals}.get(name, NUM_CAMERAS * evals)
             if n != want:
                 raise AssertionError(f"{name}: {n} launches at {row['shape']}, expected {want}")
         counted = sum(row["launches_per_solve"] for row in rows)
@@ -512,8 +548,9 @@ def check_kernels(dev):
     up, K1 and K2 below), each timed with CUDA events and set against its
     roofline: K1 as one launch sampling all 16 destination maps, K2 and K3
     as one launch for one map; then the joint bilateral kernel, one launch
-    for all 16 maps, against its twin bit for bit at every level.
-    Below K3 the solver's batched cost must equal the 16 single-destination
+    for all 16 maps, against its twin bit for bit at every level, and the
+    chamfer labels of the foreground init, one launch for the 16 maps,
+    equal to its twin at every level. Below K3 the solver's batched cost must equal the 16 single-destination
     calls bit for bit. Tolerances: the kernels and twins round every
     product alike (-fmad=false); what is left is atan2f/sqrt/exp last-ulp
     noise, which flips validity at a sensor or FOV edge for a few pixels
@@ -527,7 +564,7 @@ def check_kernels(dev):
 
     flt_max = cost_ops.FLT_MAX
     results = {k: dict(max_abs_err=0.0, levels=[])
-               for k in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral")}
+               for k in ("project_sample", "ssd_combine", "cost_fused", "joint_bilateral", "chamfer")}
 
     def record(name, err, row):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
@@ -675,6 +712,38 @@ def check_kernels(dev):
     jb["bound_ms_a_solve"] = sum(row["bound_ms"] for row in jb["levels"])
     log(f"  joint_bilateral over the ten levels: {jb['graph_ms_a_solve']:.4f} ms in graphs, bound "
         f"{jb['bound_ms_a_solve']:.4f} ms, share {100 * jb['bound_ms_a_solve'] / jb['graph_ms_a_solve']:.1f}%")
+
+    # ---- the chamfer labels of the foreground init: all 16 maps of a level
+    # in one launch, on the init's valid flags of the chain's disk scene ----
+    log("chamfer_labels (16 maps a launch), every level of the pyramid:")
+    from facebook360_dep_tpu_torch.render import synthetic
+
+    rig = synthetic.make_test_rig(NUM_CAMERAS, (WIDTHS[0], height(WIDTHS[0])), ring_radius=0.3)
+    for width in WIDTHS:
+        valid = chamfer_valid(rig, width, dev)
+        d, h, w = valid.shape
+        k = wc.chamfer_labels(valid)
+        p = wc.chamfer_labels_plain(valid)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"chamfer_labels {w}x{h}: {int((k != p).sum())} labels differ from the twin's")
+        log(f"  chamfer_labels {w}x{h} equal to its twin: True")
+        row = level_row("chamfer_labels (16 maps)", h, w, lambda: wc.chamfer_labels(valid), chamfer_work(d, h, w),
+                        5, 5)
+        row["row_step_us"] = row["graph_ms"] * 1e3 / (2 * h)
+        log(f"  chamfer_labels {w}x{h}: {row['row_step_us']:.3f} us a row step in a graph ({2 * h} steps)")
+        record("chamfer", 0.0, row)
+        if width == WIDTHS[0]:  # the plain twin on the card, 16 maps at full width
+            pms = cuda_time_ms(lambda: wc.chamfer_labels_plain(valid), 1, warmup=0)
+            log(f"  plain twin at {w}x{h}: {pms:.4f} ms (16 maps)")
+            results["chamfer"].update(ms=row["ms"], graph_ms=row["graph_ms"], plain_ms=pms, shape=f"{w}x{h}",
+                                      maps_a_call=d, row_step_us=row["row_step_us"])
+        del valid, k, p
+        torch.cuda.empty_cache()
+    ch = results["chamfer"]
+    ch["equal_to_twin"] = True  # at every level: a difference raises above
+    ch["graph_ms_a_solve"] = sum(row["graph_ms"] for row in ch["levels"])
+    log(f"  chamfer_labels over the ten levels: {ch['graph_ms_a_solve']:.4f} ms in graphs")
     for name, r in results.items():
         top = next(row for row in r["levels"] if row["shape"] == r["shape"])
         r.update(bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
@@ -1927,7 +1996,7 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
     peak = max(peaks.values())
     if dev.type == "cuda":  # on the CPU every wrapper runs its plain twin
         for name, kernels in (("derp background", ("project_sample", "ssd_combine", "cost_fused")),
-                              ("derp foreground", ("project_sample", "ssd_combine", "cost_fused")),
+                              ("derp foreground", ("project_sample", "ssd_combine", "cost_fused", "chamfer")),
                               ("export eqrcolor", ("warp_sample",))):
             missing = [k for k in kernels if launches[name][k] <= 0]
             if missing:
@@ -3117,12 +3186,14 @@ def main(argv=None) -> int:
                "ssd_combine": ("ssd_combine.cu", 1301),
                "cost_fused": ("cost_fused.cu", 997),
                "warp_sample": ("warp_sample.cu", 153),
-               "joint_bilateral": ("joint_bilateral.cu", None)}
+               "joint_bilateral": ("joint_bilateral.cu", None),
+               "chamfer": ("chamfer.cu", None)}
+    no_tpu_kernel = {"joint_bilateral": "none: the JAX package's XLA filter (facebook360_dep_tpu/ops/filters.py:39-69)",
+                     "chamfer": "none: cv2 on the JAX package's host (facebook360_dep_tpu/depth/pipeline.py:125-170)"}
     kernels = []
     for name, (src, line) in sources.items():
         chain_counts = {stage: counts[name] for stage, counts in chain_launches.items() if counts[name]}
-        replaces = (f"{WARP_PALLAS}:{line}" if line else
-                    "none: the JAX package's XLA filter (facebook360_dep_tpu/ops/filters.py:39-69)")
+        replaces = f"{WARP_PALLAS}:{line}" if line else no_tpu_kernel[name]
         entry = dict(name=name, route="cuda", source=f"{CSRC}/{src}", replaces=replaces, launches=launches[name],
                      **checks[name], chain_launches=chain_counts)
         if name == "warp_sample":  # K4 by phase: rephotography (launches), exports, playback, step 13

@@ -5,7 +5,9 @@ level the data lives on the device and :func:`solver.process_level` runs
 there. Between levels the coarser disparity initializes the finer one
 (``UpsampleDisparityLib.cpp:93-220``): upsampled with Lanczos4, or with
 foreground masks, nearest-upsampled inside the mask, holes filled from the
-nearest valid pixel and the rest from the background disparity.
+nearest valid pixel and the rest from the background disparity; that init
+runs where the level's data lies, on the card around one launch of the
+chamfer kernel (``ops/warp_cuda.py::chamfer_labels``).
 
 The filesystem contract (color_levels/level_N/<cam>/<frame>.png in,
 disparity_levels out; foreground_masks_levels and the background's
@@ -19,7 +21,8 @@ frame job's spans (``core/spans.py``): ``derp.io.read_colors``,
 ``derp.stage.{brute_force,proposals,ping_pong,mismatches,bilateral,median}``
 and ``derp.coverage``; ``derp.init`` lies before the levels. With
 ``--use_foreground_masks`` the masks' and the background's reads are
-``derp.io.read_fg`` and the init between levels is ``derp.stage.fg_init``,
+``derp.io.read_fg`` and the init between levels, with the coarser level's
+maps' and masks' copies to the device, is ``derp.stage.fg_init``,
 and three counters add up, a frame and level: ``derp.fg.mask_px`` (in-mask
 pixels), ``derp.fg.hole_px`` (in-mask holes filled from the nearest valid
 pixel) and ``derp.fg.chamfer_px`` (pixels the chamfer swept). The same
@@ -42,7 +45,7 @@ from .. import resolve_device
 from ..core import camera as cam
 from ..core import imagetypes, io
 from ..core.spans import Record, count, span
-from ..ops import sampling
+from ..ops import sampling, warp_cuda
 from . import solver
 
 log = logging.getLogger("derp")
@@ -151,17 +154,48 @@ def _upsample_fg(disp, mask, mask_up, bg_disp_up, size_wh):
     return out, holes, int(todo.sum()) * h_out * w_out
 
 
-# OpenCV's distance transform with labels (imgproc/distransform.cpp,
-# distanceTransformEx_5x5): whenever labels are asked for, DIST_L2 runs the
-# 5x5 chamfer mask (1, 1.4, 2.1969) in 16.16 fixed point, whatever the mask
-# size passed, in one forward and one backward raster pass.
-_DT_HV, _DT_DIAG, _DT_LONG = 65536, 91750, 143976  # cvRound(m * 2^16)
-_DT_INIT = (2**31 - 1) >> 2
-# neighbors in OpenCV's order (dy, dx, cost); the in-row neighbor comes last
-_DT_FORWARD = ((-2, -1, _DT_LONG), (-2, 1, _DT_LONG), (-1, -2, _DT_LONG), (-1, -1, _DT_DIAG),
-               (-1, 0, _DT_HV), (-1, 1, _DT_DIAG), (-1, 2, _DT_LONG))
-_DT_BACKWARD = ((2, 1, _DT_LONG), (2, -1, _DT_LONG), (1, 2, _DT_LONG), (1, 1, _DT_DIAG),
-                (1, 0, _DT_HV), (1, -1, _DT_DIAG), (1, -2, _DT_LONG))
+def _upsample_fg_tensors(disp, mask, mask_up, bg_disp_up, size_wh):
+    """:func:`_upsample_fg` on (D, h, w) tensors ``disp`` (float32) and
+    ``mask`` (bool) and (D, H, W) ``mask_up`` (bool) and ``bg_disp_up``
+    (float32), all on one device, where it runs: the same steps and the
+    same bits (every output value is a copy), the chamfer by
+    :func:`_chamfer_labels`. Returns the (D, H, W) float32 init, the in-mask
+    holes filled and the pixels the chamfer swept; each count is a
+    readback, and so is the choice of the maps to chamfer."""
+    dev = disp.device
+    h, w = disp.shape[-2:]
+    w_out, h_out = (int(v) for v in size_wh)
+    d = torch.where(mask, disp, float("nan"))
+    iy = torch.from_numpy(io.nearest_index(h, h_out)).to(dev)
+    ix = torch.from_numpy(io.nearest_index(w, w_out)).to(dev)
+    d_up = torch.where(mask_up, d.index_select(1, iy).index_select(2, ix), float("nan"))
+    del d
+    valid = torch.isfinite(d_up)
+    invalid = mask_up & ~valid
+    todo = (invalid.flatten(1).any(1) & valid.flatten(1).any(1)).nonzero()[:, 0]
+    n = todo.numel()
+    holes = 0
+    if n:
+        # each map's labels, offset to index the maps' flat stack
+        flat = _chamfer_labels(valid[todo])
+        del valid
+        flat += (torch.arange(n, dtype=torch.int32, device=dev) * (h_out * w_out)).view(n, 1, 1)
+        sub = d_up[todo]
+        hole = invalid[todo]
+        d_up[todo] = torch.where(hole, sub.view(-1).index_select(0, flat.view(-1)).view(sub.shape), sub)
+        holes = int(hole.sum())
+    return torch.where(torch.isfinite(d_up), d_up, bg_disp_up), holes, n * h_out * w_out
+
+
+def _chamfer_labels(valid: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) int32 flat index of each pixel's nearest valid pixel (-1
+    in a map with none) under OpenCV's chamfer labels: the kernel of
+    ``warp_cuda.chamfer_labels`` on a CUDA tensor, :func:`_nearest_valid_index`
+    (looked up when called) on a CPU one."""
+    if valid.is_cuda:
+        return warp_cuda.chamfer_labels(valid)
+    _, (iy, ix) = _nearest_valid_index(valid.numpy())
+    return torch.from_numpy(np.where(iy >= 0, iy * valid.shape[-1] + ix, -1).astype(np.int32))
 
 
 def _chamfer_row(dist, label, y, neighbors, step):
@@ -180,10 +214,10 @@ def _chamfer_row(dist, label, y, neighbors, step):
         np.copyto(best, cand, where=better)
         np.copyto(lab, label[:, y + 2 + dy, 2 + dx:2 + dx + w], where=better)
     a, lab = best[:, ::step], lab[:, ::step]
-    ramp = np.arange(w, dtype=np.int32) * np.int32(_DT_HV)
+    ramp = np.arange(w, dtype=np.int32) * np.int32(warp_cuda.DT_HV)
     v = np.minimum.accumulate(a - ramp, axis=1) + ramp
     from_prev = np.zeros(a.shape, bool)
-    np.greater(a[:, 1:], v[:, :-1] + np.int32(_DT_HV), out=from_prev[:, 1:])
+    np.greater(a[:, 1:], v[:, :-1] + np.int32(warp_cuda.DT_HV), out=from_prev[:, 1:])
     src = np.maximum.accumulate(np.where(from_prev, 0, np.arange(w, dtype=np.int32)), axis=1)
     dist[:, y + 2, 2:-2] = v[:, ::step]
     label[:, y + 2, 2:-2] = np.take_along_axis(lab, src, 1)[:, ::step]
@@ -201,14 +235,14 @@ def _nearest_valid_index(valid: np.ndarray):
     h, w = shape[-2:]
     v = valid.reshape((-1, h, w))
     # int32 holds every sum: INIT + 2.2 px and W px in 16.16 stay below 2^31
-    dist = np.full((v.shape[0], h + 4, w + 4), _DT_INIT, np.int32)
+    dist = np.full((v.shape[0], h + 4, w + 4), warp_cuda.DT_INIT, np.int32)
     label = np.full(dist.shape, -1, np.int32)
-    dist[:, 2:-2, 2:-2] = np.where(v, 0, _DT_INIT)
+    dist[:, 2:-2, 2:-2] = np.where(v, 0, warp_cuda.DT_INIT)
     label[:, 2:-2, 2:-2] = np.where(v, np.arange(h * w, dtype=np.int32).reshape(h, w), -1)
     for y in range(h):
-        _chamfer_row(dist, label, y, _DT_FORWARD, 1)
+        _chamfer_row(dist, label, y, warp_cuda.DT_FORWARD, 1)
     for y in range(h - 1, -1, -1):
-        _chamfer_row(dist, label, y, _DT_BACKWARD, -1)
+        _chamfer_row(dist, label, y, warp_cuda.DT_BACKWARD, -1)
     lab = label[:, 2:-2, 2:-2].reshape(shape).astype(np.int64)
     d = dist[:, 2:-2, 2:-2].astype(np.float32) * np.float32(1.0 / 65536)
     iy = np.where(lab >= 0, lab // w, -1)
@@ -386,15 +420,16 @@ class DepthEstimator:
     def load_coarser_disparity(self, level, frame, size_wh, fg_masks=None, bg_disp=None) -> torch.Tensor:
         """Upsampled init from level+1 outputs (DerpCLI.cpp:271-303). With
         foreground masks, ``fg_masks`` and ``bg_disp`` are this level's
-        (D, H, W) masks and background maps, as the solve loaded them.
+        (D, H, W) masks and background maps on the estimator's device, as
+        the level's context holds them.
 
         Spans: the PFM reads are ``derp.io.read_coarser``. Without masks
         the Lanczos upsample is ``derp.stage.setup``; with them the coarser
-        level's masks are read in ``derp.io.read_fg``, the whole of
-        :func:`upsample_disparity_fg` with its copy to the device is
-        ``derp.stage.fg_init``, and after it the counters
-        ``derp.fg.hole_px`` and ``derp.fg.chamfer_px`` add what it filled
-        and swept."""
+        level's masks are read in ``derp.io.read_fg``, and the copies of the
+        coarser maps and masks to the device and the whole init
+        (:func:`_upsample_fg_tensors`, there) are ``derp.stage.fg_init``;
+        after it the counters ``derp.fg.hole_px`` and ``derp.fg.chamfer_px``
+        add what it filled and swept."""
         with span("derp.io.read_coarser"):
             coarse = [io.read_disparity(self._disparity_path(level + 1, cam_id, frame, "pfm"))
                       for cam_id in self.rig_dst.ids]
@@ -405,8 +440,9 @@ class DepthEstimator:
         with span("derp.io.read_fg"):
             mask = self.load_fg_masks(level + 1, frame, self.rig_dst)
         with span("derp.stage.fg_init"):
-            up, holes, swept = _upsample_fg(np.stack(coarse), mask, fg_masks, bg_disp, size_wh)
-            up = torch.from_numpy(up).to(self.device)
+            up, holes, swept = _upsample_fg_tensors(
+                torch.from_numpy(np.asarray(np.stack(coarse), np.float32)).to(self.device),
+                torch.from_numpy(mask).to(self.device), fg_masks, bg_disp, size_wh)
         count("derp.fg.hole_px", holes)
         count("derp.fg.chamfer_px", swept)
         return up
@@ -514,7 +550,8 @@ class DepthEstimator:
         # result (also how mid-pyramid resume works; DerpCLI.cpp:271-303)
         init = None
         if level < self.num_levels - 1:
-            init = self.load_coarser_disparity(level, frame, self.level_sizes[level], fg, bg)
+            init = self.load_coarser_disparity(level, frame, self.level_sizes[level], ctx.dst_fg_masks,
+                                               ctx.dst_bg_disp)
         result = solver.process_level(ctx, cfg, init_disparity=init)
         with span("derp.readback"):
             result = {k: v.cpu().numpy() for k, v in result.items()}

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("project_sample.cu", "ssd_combine.cu", "cost_fused.cu", "warp_sample.cu", "tile_windows.cu",
-           "joint_bilateral.cu")
+           "joint_bilateral.cu", "chamfer.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false: products round where PyTorch rounds them (see common.cuh)
 NVCC_FLAGS = (
@@ -40,6 +40,7 @@ _SIGNATURES = {
     "fdt_project_sample_tpu": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P),
     "fdt_cost_fused_tpu": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
     "fdt_joint_bilateral": (_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P),
+    "fdt_chamfer_labels": (_P, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

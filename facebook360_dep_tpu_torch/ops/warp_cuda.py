@@ -15,13 +15,17 @@ wrapper                        replaces (TPU kernel)                       sourc
 ``project_sample_planes_tpu``  ``project_sample_planar_v4`` (1-2 planes)   ``csrc/project_sample.cu``
 ``cost_fused_tpu``             ``project_sample_packed`` + ``ssd_combine``  ``csrc/cost_fused.cu``
 ``joint_bilateral``            none (the XLA filter, ``ops/filters.py``)   ``csrc/joint_bilateral.cu``
+``chamfer_labels``             none (cv2 on the host)                      ``csrc/chamfer.cu``
 =============================  ==========================================  ==========================
 
 The first four carry the depth solve; ``warp_sample_planar`` carries the
 render gather (``render/dibr.py::render_view``); ``joint_bilateral`` filters
 all of a level's disparity maps in one launch (the solver's bilateral
 stage), where the JAX package runs ``filters.joint_bilateral``'s XLA ops a
-map at a time.
+map at a time; ``chamfer_labels`` labels every pixel of a level's maps with
+its nearest valid pixel in one launch (the foreground pass's init between
+levels), where the JAX package runs ``cv2.distanceTransformWithLabels`` on
+its host.
 
 Each wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch twin on CPU tensors; there is no fallback from one to the other.
@@ -78,7 +82,7 @@ V4_WINDOW_W = 256
 # kernel launches since the last reset_launch_counts(), in all and by
 # (kernel, H, W) of the output
 LAUNCHES = {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
-            "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
+            "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0, "chamfer": 0}
 LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
 
 
@@ -175,6 +179,65 @@ def joint_bilateral_plain(src_rgba, dst2src, disparity, mask, radius: int):
     at a time, stacked."""
     return torch.stack([filters.joint_bilateral(disparity[i], src_rgba[s, ..., :3], mask[i], radius)
                         for i, s in enumerate(dst2src)])
+
+
+# OpenCV's chamfer distance with labels (imgproc/distransform.cpp,
+# distanceTransformEx_5x5): whenever labels are asked for, DIST_L2 runs the
+# 5x5 chamfer mask (1, 1.4, 2.1969) in 16.16 fixed point, whatever the mask
+# size passed, in one forward and one backward raster pass.
+DT_HV, DT_DIAG, DT_LONG = 65536, 91750, 143976  # cvRound(m * 2^16)
+DT_INIT = (2**31 - 1) >> 2
+# neighbors in OpenCV's order (dy, dx, cost); the in-row neighbor comes last
+DT_FORWARD = ((-2, -1, DT_LONG), (-2, 1, DT_LONG), (-1, -2, DT_LONG), (-1, -1, DT_DIAG),
+              (-1, 0, DT_HV), (-1, 1, DT_DIAG), (-1, 2, DT_LONG))
+DT_BACKWARD = ((2, 1, DT_LONG), (2, -1, DT_LONG), (1, 2, DT_LONG), (1, 1, DT_DIAG),
+               (1, 0, DT_HV), (1, -1, DT_DIAG), (1, -2, DT_LONG))
+
+
+def _chamfer_row_plain(dist, label, y, neighbors, step):
+    """Relax padded row ``y + 2`` of (B, H+4, W+4) int32 ``dist``/``label``
+    in place, as ``depth/pipeline.py::_chamfer_row`` does in numpy: the
+    finished rows' neighbors in OpenCV's order, each compare strict, then
+    the in-row recurrence v[j] = min(a[j], v[j-1] + 1) (left to right when
+    ``step`` is 1, right to left when -1) as a running minimum of
+    a[k] - k, the label of j-1 taken only where a[j] is strictly larger."""
+    w = dist.shape[2] - 4
+    best = dist[:, y + 2, 2:-2]
+    lab = label[:, y + 2, 2:-2]
+    for dy, dx, c in neighbors:
+        cand = dist[:, y + 2 + dy, 2 + dx:2 + dx + w] + c
+        better = cand < best
+        best = torch.where(better, cand, best)
+        lab = torch.where(better, label[:, y + 2 + dy, 2 + dx:2 + dx + w], lab)
+    a, lab = (best, lab) if step == 1 else (best.flip(1), lab.flip(1))
+    ramp = torch.arange(w, dtype=torch.int32, device=dist.device)
+    v = torch.cummin(a - ramp * DT_HV, dim=1).values + ramp * DT_HV
+    from_prev = torch.zeros_like(a, dtype=torch.bool)
+    from_prev[:, 1:] = a[:, 1:] > v[:, :-1] + DT_HV
+    src = torch.cummax(torch.where(from_prev, 0, ramp), dim=1).values
+    lab = torch.gather(lab, 1, src.long())
+    dist[:, y + 2, 2:-2] = v if step == 1 else v.flip(1)
+    label[:, y + 2, 2:-2] = lab if step == 1 else lab.flip(1)
+
+
+def chamfer_labels_plain(valid):
+    """The chamfer kernel's twin: ``depth/pipeline.py::_nearest_valid_index``
+    in PyTorch, bit for bit. valid (B, H, W) bool -> (B, H, W) int32, each
+    pixel's nearest valid pixel under OpenCV's chamfer labels as the flat
+    index y * W + x, -1 in a map with no valid pixel. Runs where ``valid``
+    lies."""
+    b, h, w = valid.shape
+    dev = valid.device
+    # int32 holds every sum: INIT + 2.2 px and W px in 16.16 stay below 2^31
+    dist = torch.full((b, h + 4, w + 4), DT_INIT, dtype=torch.int32, device=dev)
+    label = torch.full_like(dist, -1)
+    dist[:, 2:-2, 2:-2] = torch.where(valid, 0, DT_INIT)
+    label[:, 2:-2, 2:-2] = torch.where(valid, torch.arange(h * w, dtype=torch.int32, device=dev).view(h, w), -1)
+    for y in range(h):
+        _chamfer_row_plain(dist, label, y, DT_FORWARD, 1)
+    for y in range(h - 1, -1, -1):
+        _chamfer_row_plain(dist, label, y, DT_BACKWARD, -1)
+    return label[:, 2:-2, 2:-2].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +715,37 @@ def joint_bilateral(src_rgba, dst2src, disparity, mask, radius: int):
                 src_rgba.data_ptr(), n, h, w, (ctypes.c_int * d)(*(int(s) for s in dst2src)), d,
                 disparity.data_ptr(), mask.data_ptr(), int(radius), out.data_ptr())
     return out
+
+
+# the widest map the chamfer kernel takes (csrc/chamfer.cu: 16 pixels a
+# thread, 256 threads a row)
+CHAMFER_MAX_WIDTH = 4096
+
+
+def chamfer_labels(valid):
+    """Each pixel's nearest valid pixel under OpenCV's chamfer labels, for
+    a stack of maps in one launch (:func:`chamfer_labels_plain`'s bits).
+
+    valid (B, H, W) bool, W at most CHAMFER_MAX_WIDTH -> (B, H, W) int32,
+    the flat index y * W + x of the nearest valid pixel, -1 in a map with no
+    valid pixel. On a CUDA tensor the kernel runs; on a CPU tensor the twin."""
+    if valid.ndim != 3:
+        raise ValueError(f"chamfer_labels: valid of shape {tuple(valid.shape)}, expected (B, H, W)")
+    b, h, w = valid.shape
+    if valid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chamfer_labels: valid on {valid.device}, expected a CPU or CUDA tensor")
+    _check("valid", valid, valid.device, (b, h, w), torch.bool)
+    if min(b, h, w) < 1 or w > CHAMFER_MAX_WIDTH or h * w >= 2**31:
+        raise ValueError(f"chamfer_labels: valid of shape {(b, h, w)}, expected B, H >= 1, 1 <= W <= "
+                         f"{CHAMFER_MAX_WIDTH} and H * W < 2^31")
+    if not valid.is_cuda:
+        return chamfer_labels_plain(valid)
+    dist = torch.empty(valid.shape, dtype=torch.int32, device=valid.device)
+    label = torch.empty_like(dist)
+    with torch.cuda.device(valid.device):
+        _launch("chamfer", (h, w), _build.load().fdt_chamfer_labels,
+                valid.data_ptr(), b, h, w, dist.data_ptr(), label.data_ptr())
+    return label
 
 
 def warp_sample_planar(src_planar, coords):

@@ -7,6 +7,7 @@ has no JAX, which tests/conftest.py imports, so run them there with:
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -175,7 +176,8 @@ def test_wrappers_validate_and_count(inputs):
     wc.project_sample(*_k1(cctx, disp, rgba))
     wc.project_sample_plain(*_k1(cctx, disp, planes))
     assert wc.LAUNCHES == {"project_sample": 1, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
-                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
+                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0,
+                           "chamfer": 0}
     assert wc.LAUNCHES_BY_SHAPE == {("project_sample", *disp.shape): 1}
     with pytest.raises(ValueError, match="contiguous"):
         wc.project_sample(*_k1(cctx, disp.t().contiguous().t(), rgba))
@@ -269,7 +271,8 @@ def test_cost_for_disparity_batched_equals_single_destinations(dev, w, h):
         cost, conf = cost_ops.cost_for_disparity(solver.cost_context(ctx), hyp)
         assert wc.LAUNCHES == {"project_sample": 0 if fused else 1, "ssd_combine": 0 if fused else 16,
                                "cost_fused": 16 if fused else 0, "warp_sample": 0,
-                               "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
+                               "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0,
+                               "chamfer": 0}
         assert (cost < FLT_MAX).double().mean().item() > 0.5
         for d in range(16):
             one = solver.cost_context(solver.select_destinations(ctx, [d]))
@@ -438,6 +441,148 @@ def test_2k_level_solve_equals_the_per_map_stage(dev, monkeypatch):
     for key, v in want.items():
         assert _bits(got[key], v) if v.dtype == torch.float32 else torch.equal(got[key], v), key
     assert torch.isfinite(got["disparity"]).double().mean().item() > 0.5
+
+
+# The chamfer kernel (csrc/chamfer.cu) at every level shape of sphere16fg
+# (sphere16's, heights (3w + 2) // 4) and at ftheta16's odd heights.
+def _with_coarser(shapes):
+    """(w, h, the next coarser level's (w, h) or None) of a pyramid's shapes, finest first."""
+    return [(w, h, shapes[i + 1] if i + 1 < len(shapes) else None) for i, (w, h) in enumerate(shapes)]
+
+
+CHAMFER_SHAPES = (_with_coarser([(w, (3 * w + 2) // 4) for w in JB_WIDTHS])
+                  + _with_coarser(list(zip(JB_WIDTHS, JB_FTHETA_HEIGHTS))))
+
+
+def _disk_masks(dev, w, h):
+    """(16, h, w) bool: the foreground masks of the benchmark's scene
+    sphere_disk (frame 1) on sphere16fg's ring, rendered at (w, h)."""
+    from depbench.reference import camera as dcam
+    from depbench.rigs import forward_ring
+    from depbench.scenes import sphere_disk
+
+    cams, ids = forward_ring.make(dict(num_cameras=16, resolution=[2048, 1536], ring_radius=0.3, focal_scale=0.45))
+    cams = dcam.normalize(dcam.load_rig_text(dcam.rig_json_text(cams, ids))[0]).to(dev, torch.float32)
+    return sphere_disk.render_inputs(cams, (w, h), 7, 1)["foreground_masks_levels"].to(torch.bool)
+
+
+def _chamfer_stacks(dev, w, h, coarser):
+    """Two (16, h, w) stacks of valid flags: the init's at this level (the
+    disk's mask, less where the coarser level's mask, nearest-upsampled,
+    leaves a hole) and random ones, among them a map with no valid pixel,
+    a full one and one with a single valid pixel."""
+    disk = _disk_masks(dev, w, h)
+    if coarser is not None:
+        cw, ch = coarser
+        iy = torch.from_numpy(pipeline.io.nearest_index(ch, h)).to(dev)
+        ix = torch.from_numpy(pipeline.io.nearest_index(cw, w)).to(dev)
+        disk = disk & _disk_masks(dev, cw, ch).index_select(1, iy).index_select(2, ix)
+    gen = torch.Generator(device=dev).manual_seed(w * h)
+    rand = torch.rand((16, h, w), generator=gen, device=dev) < 0.02
+    rand[3] = False
+    rand[4] = True
+    rand[5] = False
+    rand[5, h // 2, w - 1] = True
+    return disk.contiguous(), rand.contiguous()
+
+
+@pytest.mark.parametrize("w,h,coarser", CHAMFER_SHAPES)
+def test_chamfer_labels_equal_twin_at_level_shapes(dev, w, h, coarser):
+    """All 16 maps of a level in one launch: the kernel's labels are the
+    twin's (run on the card) at every level shape of both configurations,
+    on the foreground scene's masks and on random ones."""
+    for valid in _chamfer_stacks(dev, w, h, coarser):
+        wc.reset_launch_counts()
+        k = wc.chamfer_labels(valid)
+        assert wc.LAUNCHES["chamfer"] == 1 and wc.LAUNCHES_BY_SHAPE == {("chamfer", h, w): 1}
+        p = wc.chamfer_labels_plain(valid)
+        torch.cuda.synchronize()
+        assert k.dtype == torch.int32 and torch.equal(k, p)
+        has = valid.flatten(1).any(1)
+        assert (k[~has] == -1).all() and (k[has] >= 0).all()
+
+
+def _fg_init_inputs(dev, fine, coarse, seed):
+    """A level's foreground init inputs: 16 coarser maps (some NaN) and the
+    masks of both levels from the foreground scene, the plate random."""
+    (w, h), (cw, ch) = fine, coarse
+    rng = np.random.RandomState(seed)
+    disp = (rng.rand(16, ch, cw) * 0.3 + 0.1).astype(np.float32)
+    disp[rng.rand(16, ch, cw) < 0.01] = np.nan
+    mask = _disk_masks(dev, cw, ch).cpu().numpy()
+    mask_up = _disk_masks(dev, w, h).cpu().numpy()
+    bg = (rng.rand(16, h, w) * 0.1).astype(np.float32)
+    return disp, mask, mask_up, bg
+
+
+def test_2k_foreground_init_on_the_card_equals_the_host(dev):
+    """Level 0 of sphere16fg (1024x768 -> 2048x1536, 16 maps): the init on
+    the card (one chamfer launch) gives the host path's array byte for byte
+    and the same counts."""
+    disp, mask, mask_up, bg = _fg_init_inputs(dev, (2048, 1536), (1024, 768), 0)
+    want, holes, swept = pipeline._upsample_fg(disp, mask, mask_up, bg, (2048, 1536))
+    wc.reset_launch_counts()
+    got, got_holes, got_swept = pipeline._upsample_fg_tensors(
+        *(torch.from_numpy(a).to(dev) for a in (disp, mask, mask_up, bg)), (2048, 1536))
+    assert wc.LAUNCHES["chamfer"] == 1 and wc.LAUNCHES_BY_SHAPE == {("chamfer", 1536, 2048): 1}
+    assert got.is_cuda and got.cpu().numpy().tobytes() == want.tobytes()
+    assert (got_holes, got_swept) == (holes, swept) and holes > 0 and swept == 16 * 2048 * 1536
+
+
+def test_derp_cli_foreground_pyramid_on_the_card_equals_the_host_init(dev, tmp_path, monkeypatch):
+    """A 16-camera, three-level derp_cli --use_foreground_masks on the card
+    launches the chamfer once a level below the coarsest (one launch a
+    load_coarser_disparity) and writes the PFMs, at every level, that the
+    same run writes with the init made on the host (the numpy path) and
+    copied to the card."""
+    from facebook360_dep_tpu_torch.cli import derp_cli
+    from facebook360_dep_tpu_torch.core import imagetypes, io
+
+    levels = {0: (96, 72), 1: (64, 48), 2: (48, 36)}
+    rig = synthetic.make_test_rig(16, levels[0], ring_radius=0.3)
+    colors, gt = synthetic.render_sphere_scene(rig, levels[0], radius=5.0)
+    root = str(tmp_path / "project")
+    for level, (w, h) in levels.items():
+        masks = _disk_masks(torch.device("cpu"), w, h).numpy()
+        for i, cam_id in enumerate(rig.ids):
+            layers = (("color_levels", "png", io.resize_image(colors[i].numpy(), (w, h))),
+                      ("foreground_masks_levels", "png", masks[i].astype(np.uint8) * 255),
+                      ("background_disp_levels", "pfm",
+                       io.resize_image(np.nan_to_num(gt[i].numpy(), nan=1e-4), (w, h)) * np.float32(0.8)))
+            for image_type, ext, value in layers:
+                d = imagetypes.image_dir(root, image_type, level, cam_id)
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(d, "000000." + ext)
+                if image_type == "color_levels":
+                    io.write_color(path, value, bit_depth=16)
+                elif ext == "png":
+                    io.write_png(path, value)
+                else:
+                    io.write_pfm(path, value.astype(np.float32))
+    os.makedirs(os.path.join(root, "rigs"))
+    tcam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
+    argv = ["--input_root", root, "--use_foreground_masks", "true", "--min_depth_m", "1", "--max_depth_m", "100",
+            "--resolution", "96"]
+
+    wc.reset_launch_counts()
+    derp_cli.main(argv + ["--output_root", str(tmp_path / "card")], device=dev)
+    assert {k: v for k, v in wc.LAUNCHES_BY_SHAPE.items() if k[0] == "chamfer"} == {
+        ("chamfer", 72, 96): 1, ("chamfer", 48, 64): 1}
+
+    def host_init(disp, mask, mask_up, bg, size_wh):
+        up, holes, swept = pipeline._upsample_fg(*(t.cpu().numpy() for t in (disp, mask, mask_up, bg)), size_wh)
+        return torch.from_numpy(up).to(disp.device), holes, swept
+
+    monkeypatch.setattr(pipeline, "_upsample_fg_tensors", host_init)
+    wc.reset_launch_counts()
+    derp_cli.main(argv + ["--output_root", str(tmp_path / "host")], device=dev)
+    assert wc.LAUNCHES["chamfer"] == 0
+    for level in levels:
+        for cam_id in rig.ids:
+            paths = [imagetypes.gen_filename(str(tmp_path / out), "disparity_levels", level, cam_id, "000000", "pfm")
+                     for out in ("card", "host")]
+            card, host = (open(p, "rb").read() for p in paths)
+            assert card == host, (level, cam_id)
 
 
 @pytest.mark.parametrize("depth_scale", [1.0, 0.5])

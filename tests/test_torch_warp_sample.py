@@ -114,4 +114,5 @@ def test_wrappers_on_cpu_count_nothing_and_reset_covers_k4():
     b = wc.warp_sample_planar_plain(src, coords)
     assert torch.equal(a[1], b[1]) and torch.equal(a[0].nan_to_num(7.0), b[0].nan_to_num(7.0))
     assert wc.LAUNCHES == {"project_sample": 0, "ssd_combine": 0, "cost_fused": 0, "warp_sample": 0,
-                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0}
+                           "tile_windows": 0, "project_sample_tpu": 0, "cost_fused_tpu": 0, "joint_bilateral": 0,
+                           "chamfer": 0}
