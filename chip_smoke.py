@@ -56,8 +56,8 @@
    background's solve, temporal_bilateral_filter at level 0, upsample_disparity
    from level 1 to 2048 with color, masks and background, and an eqrcolor
    export of the filtered frame 000001. It checks that K1-K3 were launched
-   by both solves, the chamfer by the foreground solve and K4 by the export, the masks' IoU against the disk's
-   true coverage, and the level-0, in-disk, filtered and upsampled median
+   by both solves, the chamfer by the foreground solve, once a camera with holes by the upsample, and K4
+   by the export, the masks' IoU against the disk's true coverage, and the level-0, in-disk, filtered and upsampled median
    relative errors against the composited truth (bar 0.05); then
    convert_to_binary --foreground_masks of the filtered frame 000001, whose
    meshes must keep to the masks' pixels;
@@ -242,6 +242,11 @@ import sys
 import tempfile
 import time
 
+# the card's peaks and the kernels' work: the benchmark's roofline, the one
+# definition behind the kernel table's bounds and the cells' k*_roofline_pct
+from depbench.roofline import (FP32_FLOP_PER_S, HBM_BYTES_PER_S, PARAM_BYTES, bound_s, k1_flops, k1_work, k2_flops,
+                               k2_work, k3_work)
+
 WIDTHS = [2048, 1024, 512, 256, 200, 128, 100, 80, 60, 50]
 TWIN_WIDTH = 256  # the level below K3 whose checks are printed in full and whose twins are timed
 NUM_CAMERAS = 16
@@ -357,66 +362,17 @@ def compare_validity(name, kernel, plain, max_frac, quiet=False):
         raise AssertionError(f"{name}: validity differs at {frac:.2e} of pixels")
 
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
-# the roofline of the kernel table.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-PARAM_BYTES = 24 * 4  # one packed source camera
-
-
-# unfused FP32 instructions a second (128 lanes a clock an SM; the peak
-# above counts an FMA as two operations) and expf results a second
-# (MUFU.EX2, 16 a clock an SM), at the peak's 132 SMs and 1.98 GHz
+# unfused FP32 instructions a second (128 lanes a clock an SM;
+# FP32_FLOP_PER_S counts an FMA as two operations) and expf results a
+# second (MUFU.EX2, 16 a clock an SM), at the peak's 132 SMs and 1.98 GHz
 FP32_ISSUE_PER_S = FP32_FLOP_PER_S / 2
 SFU_PER_S = 132 * 16 * 1.98e9
 
 
-def k1_flops(c: int) -> int:
-    """FLOPs per (destination pixel, source) of K1: the projection (world
-    point, rotation, norms, distortion, focal, FOV cone and sensor tests)
-    ~70, then a bilinear lerp of 6 per channel."""
-    return 70 + 6 * c
-
-
-def k2_flops(c: int) -> int:
-    """FLOPs per (destination pixel, non-self source) of K2: differences,
-    squares and their channel sum 3C - 1, separable 3x3 boxes of C + 2
-    planes 4 each, the bias compensation 12 + 2C, the top-two fold 4."""
-    return (3 * c - 1) + 4 * (c + 2) + (12 + 2 * c) + 4
-
-
 def roofline(nbytes: float, flops: float):
-    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the FLOPs over the float32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k1_work(n, c, hs, ws, h, w, d):
-    """(bytes, FLOPs) of sampling d destination maps (one launch): the
-    sources' C channels (not the pad the kernel's layout adds), cameras,
-    positions, disparities and rays read once, the samples and validity
-    written once."""
-    hw = h * w
-    return (4 * n * c * hs * ws + n * PARAM_BYTES + d * (12 + 16 * hw) + d * n * (4 * c + 1) * hw,
-            d * n * hw * k1_flops(c))
-
-
-def k2_work(n, c, h, w):
-    """The non-self sources' samples and validity (the kernel skips the
-    self source), dst and variance read once, cost and confidence written
-    once."""
-    hw = h * w
-    return 4 * (n - 1) * c * hw + (n - 1) * hw + 4 * c * hw + 4 * hw + 8 * hw, (n - 1) * hw * k2_flops(c)
-
-
-def k3_work(n, hs, ws, h, w):
-    """The non-self sources' three planes, cameras, disparity, rays, dst and
-    variance read once, cost and confidence written once."""
-    hw = h * w
-    return (4 * (n - 1) * 3 * hs * ws + n * PARAM_BYTES + 12 + 4 * 8 * hw + 8 * hw,
-            (n - 1) * hw * (k1_flops(3) + k2_flops(3)))
+    """(bound ms, "bytes" or "operations"): ``bound_s`` and what binds it."""
+    return bound_s(nbytes, flops) * 1e3, ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+                                          else "operations")
 
 
 def jb_radius(level: int) -> int:
@@ -1900,6 +1856,7 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
                                                upsample_disparity)
     from facebook360_dep_tpu_torch.core import camera as cam
     from facebook360_dep_tpu_torch.core import imagetypes, io
+    from facebook360_dep_tpu_torch.depth import pipeline
     from facebook360_dep_tpu_torch.ops import warp_cuda as wc
     from facebook360_dep_tpu_torch.render import synthetic
     from facebook360_dep_tpu_torch.stream import mesh
@@ -2001,6 +1958,22 @@ def run_foreground_chain(tmp: str, dev, widths=WIDTHS, profile_dir: str = ""):
             missing = [k for k in kernels if launches[name][k] <= 0]
             if missing:
                 raise AssertionError(f"foreground chain: {name} never launched {missing}")
+        # the upsample's init: one chamfer launch for each camera whose
+        # upsampled map has both an in-mask hole and a valid pixel
+        nrig = cam.normalize_rig(cam.load_rig(rig_path))
+        want = 0
+        for i, cam_id in enumerate(rig.ids):
+            d = io.read_disparity(os.path.join(fg_out, "disparity_levels/level_1", cam_id, CHAIN_FRAMES[1] + ".pfm"))
+            m, m_up = (io.read_mask(os.path.join(fg_levels, f"level_{lv}", cam_id, CHAIN_FRAMES[1] + ".png"))
+                       & pipeline.generate_fov_masks(nrig, shape, "cpu")[i].numpy()
+                       for lv, shape in ((1, d.shape), (0, (full[1], full[0]))))
+            up = np.where(m, d, np.nan)[io.nearest_index(d.shape[0], full[1])][:, io.nearest_index(d.shape[1], full[0])]
+            valid = np.isfinite(up) & m_up
+            want += bool((m_up & ~valid).any() and valid.any())
+        log(f"  stage upsample: {want} of {len(rig.ids)} cameras need the chamfer")
+        if not 0 < want == launches["upsample"]["chamfer"]:
+            raise AssertionError(f"foreground chain: upsample launched the chamfer {launches['upsample']['chamfer']} "
+                                 f"times for {want} cameras with holes")
 
     # masks against the disk's true coverage at level 0
     inter = union = 0

@@ -1,9 +1,10 @@
 """UpsampleDisparity equivalent: color-guided disparity upsampling to the
 output resolution. Flags mirror ``depth_estimation/UpsampleDisparity.cpp:37-55``;
 the upsample follows ``UpsampleDisparityLib.cpp:93-220`` (masked nearest or
-Lanczos4 upsize, NaN fill, background fill), then with ``--color`` the
-joint bilateral filter guided by the full-resolution color runs on the
-card. Writes ``<output>/<cam>/<frame>.<format>``.
+Lanczos4 upsize, NaN fill, background fill; with masks, derp_cli's init
+between levels, its chamfer on the card), then with ``--color`` the joint
+bilateral filter guided by the full-resolution color runs on the card.
+Writes ``<output>/<cam>/<frame>.<format>``.
 
     python -m facebook360_dep_tpu_torch.cli.upsample_disparity --rig <rig.json> \\
         --disparity <dir at the input level> --output <dir> --resolution 2048 \\
@@ -78,13 +79,16 @@ def main(argv=None, *, device=None):
     def load(root, cam_id, frame, loader):
         return loader(io.frame_path(os.path.join(root, cam_id), frame))
 
+    def on_dev(a, dtype):  # one map as a (1, H, W) stack on the device
+        return torch.from_numpy(np.asarray(a, dtype))[None].to(dev)
+
     for f in range(int(args.first), int(args.last) + 1):
         frame = io.frame_name(f)
         for i, cam_id in enumerate(rig.ids):
             disp = load(args.disparity, cam_id, frame, io.read_disparity)
             if fov_small is None:
-                fov_small = generate_fov_masks(nrig, disp.shape, dev).cpu().numpy()
-                fov_up = generate_fov_masks(nrig, (size_up[1], size_up[0]), dev).cpu().numpy()
+                fov_small = generate_fov_masks(nrig, disp.shape, dev)
+                fov_up = generate_fov_masks(nrig, (size_up[1], size_up[0]), dev)
             bg_up = (load(args.background_disp, cam_id, args.background_frame, io.read_disparity)
                      if args.background_disp else np.zeros((size_up[1], size_up[0]), np.float32))
             mask_up = np.ones((size_up[1], size_up[0]), bool)
@@ -92,8 +96,9 @@ def main(argv=None, *, device=None):
                 mask = load(args.foreground_masks_in, cam_id, frame, io.read_mask)
                 if args.foreground_masks_out:
                     mask_up = load(args.foreground_masks_out, cam_id, frame, io.read_mask)
-                up = torch.from_numpy(depth_pipeline.upsample_disparity_fg(
-                    disp, fov_small[i] & mask, fov_up[i] & mask_up, bg_up, size_up)).to(dev)
+                up = depth_pipeline._upsample_fg_tensors(
+                    on_dev(disp, np.float32), fov_small[i:i + 1] & on_dev(mask, bool),
+                    fov_up[i:i + 1] & on_dev(mask_up, bool), on_dev(bg_up, np.float32), size_up)[0][0]
             else:
                 up = depth_pipeline.upsample_disparity_init(torch.from_numpy(disp).to(dev), size_up)
 

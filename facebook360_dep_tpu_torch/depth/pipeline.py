@@ -121,46 +121,33 @@ def upsample_disparity_init(disp: torch.Tensor, size_wh) -> torch.Tensor:
 
 def upsample_disparity_fg(disp, mask, mask_up, bg_disp_up, size_wh) -> np.ndarray:
     """Foreground path (UpsampleDisparityLib.cpp:97-141; pipeline.py:125-150)
-    on the host, for one (H, W) map or a stack (..., H, W): NaN outside the
-    mask, nearest upsample (cv2 INTER_NEAREST), NaN outside the upsampled
-    mask, in-mask holes filled from the nearest valid pixel (OpenCV's
-    chamfer labels, :func:`_nearest_valid_index`), the rest from the
-    upsampled background disparity."""
-    return _upsample_fg(disp, mask, mask_up, bg_disp_up, size_wh)[0]
-
-
-def _upsample_fg(disp, mask, mask_up, bg_disp_up, size_wh):
-    """:func:`upsample_disparity_fg`, and the in-mask holes it filled and
-    the pixels the chamfer swept (the maps chamfered times H times W)."""
-    d = np.where(mask, np.asarray(disp, np.float32), np.float32(np.nan))
-    h, w = d.shape[-2:]
+    with numpy in and out, for one (H, W) map or a stack (..., H, W), the
+    background broadcast against the maps: :func:`_upsample_fg_tensors` on
+    CPU tensors, as an array of the input's leading shape. The CLIs call
+    :func:`_upsample_fg_tensors` on their device's tensors."""
+    disp = np.asarray(disp, np.float32)
+    lead = disp.shape[:-2]
     w_out, h_out = (int(v) for v in size_wh)
-    d_up = d[..., io.nearest_index(h, h_out), :][..., io.nearest_index(w, w_out)]
-    mask_up = np.asarray(mask_up, bool)
-    d_up = np.where(mask_up, d_up, np.float32(np.nan)).reshape((-1, h_out, w_out))
-    valid = np.isfinite(d_up)
-    invalid = ~valid & mask_up.reshape(d_up.shape)
-    todo = invalid.any(axis=(1, 2)) & valid.any(axis=(1, 2))
-    holes = 0
-    if todo.any():
-        _, (iy, ix) = _nearest_valid_index(valid[todo])
-        flat = (-1, h_out * w_out)
-        fill = np.take_along_axis(d_up[todo].reshape(flat), (iy * w_out + ix).reshape(flat), 1)
-        hole = invalid[todo]
-        d_up[todo] = np.where(hole, fill.reshape(-1, h_out, w_out), d_up[todo])
-        holes = np.count_nonzero(hole)
-    d_up = d_up.reshape(d.shape[:-2] + (h_out, w_out))
-    out = np.where(np.isfinite(d_up), d_up, np.asarray(bg_disp_up, np.float32))
-    return out, holes, int(todo.sum()) * h_out * w_out
+
+    def stack(a, dtype, hw):
+        return torch.from_numpy(np.array(np.broadcast_to(np.asarray(a, dtype), lead + hw)).reshape((-1,) + hw))
+
+    out = _upsample_fg_tensors(stack(disp, np.float32, disp.shape[-2:]), stack(mask, bool, disp.shape[-2:]),
+                               stack(mask_up, bool, (h_out, w_out)), stack(bg_disp_up, np.float32, (h_out, w_out)),
+                               size_wh)[0]
+    return out.numpy().reshape(lead + (h_out, w_out))
 
 
 def _upsample_fg_tensors(disp, mask, mask_up, bg_disp_up, size_wh):
-    """:func:`_upsample_fg` on (D, h, w) tensors ``disp`` (float32) and
-    ``mask`` (bool) and (D, H, W) ``mask_up`` (bool) and ``bg_disp_up``
-    (float32), all on one device, where it runs: the same steps and the
-    same bits (every output value is a copy), the chamfer by
-    :func:`_chamfer_labels`. Returns the (D, H, W) float32 init, the in-mask
-    holes filled and the pixels the chamfer swept; each count is a
+    """The init between levels with foreground masks on (D, h, w) tensors
+    ``disp`` (float32) and ``mask`` (bool) and (D, H, W) ``mask_up`` (bool)
+    and ``bg_disp_up`` (float32), all on one device, where it runs: NaN
+    outside the mask, nearest upsample (cv2 INTER_NEAREST), NaN outside the
+    upsampled mask, in-mask holes filled from the nearest valid pixel
+    (OpenCV's chamfer labels, :func:`_chamfer_labels`), the rest from the
+    upsampled background disparity; every output value is a copy. Returns
+    the (D, H, W) float32 init, the in-mask holes filled and the pixels the
+    chamfer swept (the maps chamfered times H times W); each count is a
     readback, and so is the choice of the maps to chamfer."""
     dev = disp.device
     h, w = disp.shape[-2:]
@@ -190,64 +177,29 @@ def _upsample_fg_tensors(disp, mask, mask_up, bg_disp_up, size_wh):
 def _chamfer_labels(valid: torch.Tensor) -> torch.Tensor:
     """(B, H, W) int32 flat index of each pixel's nearest valid pixel (-1
     in a map with none) under OpenCV's chamfer labels: the kernel of
-    ``warp_cuda.chamfer_labels`` on a CUDA tensor, :func:`_nearest_valid_index`
-    (looked up when called) on a CPU one."""
+    ``warp_cuda.chamfer_labels`` on a CUDA tensor, its plain twin through
+    :func:`_nearest_valid_index` (looked up when called) on a CPU one."""
     if valid.is_cuda:
         return warp_cuda.chamfer_labels(valid)
     _, (iy, ix) = _nearest_valid_index(valid.numpy())
     return torch.from_numpy(np.where(iy >= 0, iy * valid.shape[-1] + ix, -1).astype(np.int32))
 
 
-def _chamfer_row(dist, label, y, neighbors, step):
-    """Relax padded row ``y + 2`` of (B, H+4, W+4) ``dist``/``label`` in
-    place: first the neighbors of finished rows in OpenCV's order, then the
-    in-row neighbor (left when ``step`` is 1, right when -1). Each compare is
-    strict, so the first of equal candidates wins, as in OpenCV. The in-row
-    recurrence v[j] = min(a[j], v[j-1] + 1) is a running minimum of
-    a[k] - k over the row, so a row costs a fixed number of numpy passes."""
-    w = dist.shape[2] - 4
-    best = dist[:, y + 2, 2:-2].copy()
-    lab = label[:, y + 2, 2:-2].copy()
-    for dy, dx, c in neighbors:
-        cand = dist[:, y + 2 + dy, 2 + dx:2 + dx + w] + np.int32(c)
-        better = cand < best
-        np.copyto(best, cand, where=better)
-        np.copyto(lab, label[:, y + 2 + dy, 2 + dx:2 + dx + w], where=better)
-    a, lab = best[:, ::step], lab[:, ::step]
-    ramp = np.arange(w, dtype=np.int32) * np.int32(warp_cuda.DT_HV)
-    v = np.minimum.accumulate(a - ramp, axis=1) + ramp
-    from_prev = np.zeros(a.shape, bool)
-    np.greater(a[:, 1:], v[:, :-1] + np.int32(warp_cuda.DT_HV), out=from_prev[:, 1:])
-    src = np.maximum.accumulate(np.where(from_prev, 0, np.arange(w, dtype=np.int32)), axis=1)
-    dist[:, y + 2, 2:-2] = v[:, ::step]
-    label[:, y + 2, 2:-2] = np.take_along_axis(lab, src, 1)[:, ::step]
-
-
 def _nearest_valid_index(valid: np.ndarray):
     """Chamfer distance and the nearest valid pixel of every pixel of one
     (H, W) mask or a stack (B, H, W), as
     ``cv2.distanceTransformWithLabels(~valid, DIST_L2, 3, DIST_LABEL_PIXEL)``
-    computes them (pipeline.py:153-167): identical labels, not an exact
-    EDT. Returns (dist float32, (iy, ix)); -1 where a mask has no valid
-    pixel."""
-    valid = np.asarray(valid, bool)
-    shape = valid.shape
-    h, w = shape[-2:]
-    v = valid.reshape((-1, h, w))
-    # int32 holds every sum: INIT + 2.2 px and W px in 16.16 stay below 2^31
-    dist = np.full((v.shape[0], h + 4, w + 4), warp_cuda.DT_INIT, np.int32)
-    label = np.full(dist.shape, -1, np.int32)
-    dist[:, 2:-2, 2:-2] = np.where(v, 0, warp_cuda.DT_INIT)
-    label[:, 2:-2, 2:-2] = np.where(v, np.arange(h * w, dtype=np.int32).reshape(h, w), -1)
-    for y in range(h):
-        _chamfer_row(dist, label, y, warp_cuda.DT_FORWARD, 1)
-    for y in range(h - 1, -1, -1):
-        _chamfer_row(dist, label, y, warp_cuda.DT_BACKWARD, -1)
-    lab = label[:, 2:-2, 2:-2].reshape(shape).astype(np.int64)
-    d = dist[:, 2:-2, 2:-2].astype(np.float32) * np.float32(1.0 / 65536)
-    iy = np.where(lab >= 0, lab // w, -1)
-    ix = np.where(lab >= 0, lab % w, -1)
-    return d.reshape(shape), (iy, ix)
+    computes them (pipeline.py:153-167), by ``warp_cuda``'s plain chamfer.
+    Returns (dist float32, (iy, ix)); -1 where a mask has no valid pixel.
+    The benchmark's planted fault ``fg_holes_from_plate``
+    (``depbench/tests/faults_fg.py``) replaces this function by name, which
+    is why it stays between :func:`_chamfer_labels` and the twin."""
+    valid = np.array(valid, bool)
+    h, w = valid.shape[-2:]
+    dist, label = warp_cuda._chamfer_plain(torch.from_numpy(valid.reshape(-1, h, w)))
+    lab = label.numpy().reshape(valid.shape).astype(np.int64)
+    d = dist.numpy().reshape(valid.shape).astype(np.float32) * np.float32(1.0 / 65536)
+    return d, (np.where(lab >= 0, lab // w, -1), np.where(lab >= 0, lab % w, -1))
 
 
 class DepthEstimator:

@@ -196,11 +196,13 @@ DT_BACKWARD = ((2, 1, DT_LONG), (2, -1, DT_LONG), (1, 2, DT_LONG), (1, 1, DT_DIA
 
 def _chamfer_row_plain(dist, label, y, neighbors, step):
     """Relax padded row ``y + 2`` of (B, H+4, W+4) int32 ``dist``/``label``
-    in place, as ``depth/pipeline.py::_chamfer_row`` does in numpy: the
-    finished rows' neighbors in OpenCV's order, each compare strict, then
-    the in-row recurrence v[j] = min(a[j], v[j-1] + 1) (left to right when
+    in place, as one row of ``distanceTransformEx_5x5`` does: the finished
+    rows' neighbors in OpenCV's order (``DT_FORWARD``/``DT_BACKWARD``), each
+    compare strict so that the first of equal candidates wins, then the
+    in-row recurrence v[j] = min(a[j], v[j-1] + DT_HV) (left to right when
     ``step`` is 1, right to left when -1) as a running minimum of
-    a[k] - k, the label of j-1 taken only where a[j] is strictly larger."""
+    a[k] - k * DT_HV, the label of j-1 taken only where a[j] is strictly
+    larger. A row costs a fixed number of tensor ops, whatever its width."""
     w = dist.shape[2] - 4
     best = dist[:, y + 2, 2:-2]
     lab = label[:, y + 2, 2:-2]
@@ -220,12 +222,13 @@ def _chamfer_row_plain(dist, label, y, neighbors, step):
     label[:, y + 2, 2:-2] = lab if step == 1 else lab.flip(1)
 
 
-def chamfer_labels_plain(valid):
-    """The chamfer kernel's twin: ``depth/pipeline.py::_nearest_valid_index``
-    in PyTorch, bit for bit. valid (B, H, W) bool -> (B, H, W) int32, each
-    pixel's nearest valid pixel under OpenCV's chamfer labels as the flat
-    index y * W + x, -1 in a map with no valid pixel. Runs where ``valid``
-    lies."""
+def _chamfer_plain(valid):
+    """OpenCV's ``distanceTransformEx_5x5`` with pixel labels on each map of
+    (B, H, W) bool ``valid`` (the zero pixels of the transformed image are
+    the valid ones), where ``valid`` lies: one forward and one backward
+    raster pass. Returns (dist, label), each (B, H, W) int32: the chamfer
+    distance in 16.16 fixed point (DT_INIT where a map has no valid pixel)
+    and the nearest valid pixel as the flat index y * W + x (-1 there)."""
     b, h, w = valid.shape
     dev = valid.device
     # int32 holds every sum: INIT + 2.2 px and W px in 16.16 stay below 2^31
@@ -237,7 +240,17 @@ def chamfer_labels_plain(valid):
         _chamfer_row_plain(dist, label, y, DT_FORWARD, 1)
     for y in range(h - 1, -1, -1):
         _chamfer_row_plain(dist, label, y, DT_BACKWARD, -1)
-    return label[:, 2:-2, 2:-2].contiguous()
+    return dist[:, 2:-2, 2:-2].contiguous(), label[:, 2:-2, 2:-2].contiguous()
+
+
+def chamfer_labels_plain(valid):
+    """The chamfer kernel's twin: the labels of :func:`_chamfer_plain`,
+    which are ``cv2.distanceTransformWithLabels(~valid, DIST_L2, 3,
+    DIST_LABEL_PIXEL)``'s nearest zero pixels, ties included. valid
+    (B, H, W) bool -> (B, H, W) int32, each pixel's nearest valid pixel as
+    the flat index y * W + x, -1 in a map with no valid pixel. Runs where
+    ``valid`` lies."""
+    return _chamfer_plain(valid)[1]
 
 
 # ---------------------------------------------------------------------------

@@ -2,20 +2,22 @@
 
 ``ops/warp_cuda.py::chamfer_labels`` runs the kernel of ``csrc/chamfer.cu``
 on a CUDA tensor and its plain twin ``chamfer_labels_plain`` on a CPU one;
-the twin is held here to the numpy chamfer (``depth/pipeline.py::
-_nearest_valid_index``) and to ``cv2.distanceTransformWithLabels``, ties
-included, and the wrapper's checks are exercised. The init on tensors
-(``pipeline._upsample_fg_tensors``, what the estimator runs on its device)
-is held to the numpy init (``pipeline._upsample_fg``) bit for bit, with the
-same counts, at the foreground configuration's level shapes scaled down and
-at a ragged shape. tests/test_torch_cuda.py holds the kernel to the twin on
-the card."""
+the twin is held here to the JAX package's chamfer
+(``facebook360_dep_tpu/depth/pipeline.py::_nearest_valid_index``) and to
+``cv2.distanceTransformWithLabels``, ties included, and the wrapper's
+checks are exercised. The init on tensors (``pipeline._upsample_fg_tensors``,
+what the estimator runs on its device) is held to the JAX package's
+``upsample_disparity_fg``, map by map, bit for bit, and its counts to the
+holes and maps that the inputs give, at the foreground configuration's level
+shapes scaled down and at a ragged shape. tests/test_torch_cuda.py holds the
+kernel to the twin on the card."""
 
 import cv2
 import numpy as np
 import pytest
 import torch
 
+from facebook360_dep_tpu.depth import pipeline as jpipe
 from facebook360_dep_tpu_torch.depth import pipeline
 from facebook360_dep_tpu_torch.ops import warp_cuda as wc
 
@@ -45,9 +47,16 @@ def _valid(rng, kind, h, w):
     return valid
 
 
-def _numpy_labels(valid):
-    _, (iy, ix) = pipeline._nearest_valid_index(valid)
-    return np.where(iy >= 0, iy * valid.shape[-1] + ix, -1)
+def _jax_labels(valid):
+    """The JAX package's nearest valid pixel of each map as a flat index
+    y * W + x; -1 in a map with no valid pixel (which it never labels)."""
+    maps = valid.reshape((-1,) + valid.shape[-2:])
+    out = np.full(maps.shape, -1, np.int64)
+    for v, o in zip(maps, out):
+        if v.any():
+            _, (iy, ix) = jpipe._nearest_valid_index(v)
+            o[:] = iy * v.shape[-1] + ix
+    return out.reshape(valid.shape)
 
 
 def _opencv_labels(valid):
@@ -65,15 +74,15 @@ def _twin(valid):
 @pytest.mark.parametrize("kind", KINDS)
 def test_twin_equals_numpy_chamfer_and_opencv(kind):
     """One map at a time, at odd and degenerate sizes: the twin's labels are
-    the numpy chamfer's and cv2's, ties included; -1 in a map with no valid
-    pixel."""
+    the JAX package's chamfer's and cv2's, ties included; -1 in a map with
+    no valid pixel."""
     rng = np.random.RandomState(len(kind))
     for h, w in SIZES:
         valid = _valid(rng, kind, h, w) if min(h, w) > 4 or kind in ("empty", "full") else rng.rand(h, w) < 0.3
         got = _twin(valid[None])[0]
         assert got.dtype == np.int32
-        np.testing.assert_array_equal(got, _numpy_labels(valid), err_msg=f"{kind} {h}x{w}")
         if valid.any():
+            np.testing.assert_array_equal(got, _jax_labels(valid), err_msg=f"{kind} {h}x{w}")
             np.testing.assert_array_equal(got, _opencv_labels(valid), err_msg=f"{kind} {h}x{w}")
         else:
             assert (got == -1).all()
@@ -90,7 +99,7 @@ def test_twin_labels_a_stack_map_by_map(kind):
     got = _twin(stack)
     for i in range(len(stack)):
         np.testing.assert_array_equal(got[i], _twin(stack[i:i + 1])[0], err_msg=str(i))
-    np.testing.assert_array_equal(got, _numpy_labels(stack))
+    np.testing.assert_array_equal(got, _jax_labels(stack))
     assert (got[1] == -1).all() and (got[2] == np.arange(h * w).reshape(h, w)).all()
 
 
@@ -155,13 +164,30 @@ def _init_case(fine, coarse, seed):
     return disp, mask, mask_up, bg
 
 
+def _jax_init(disp, mask, mask_up, bg, size_wh):
+    """The JAX package's init between levels of each map, stacked."""
+    return np.stack([jpipe.upsample_disparity_fg(*one, size_wh) for one in zip(disp, mask, mask_up, bg)])
+
+
+def _holes_and_swept(disp, mask, mask_up, size_wh):
+    """The in-mask holes of the maps that have a hole and a valid pixel
+    after the nearest upsample (cv2's), and those maps' pixels."""
+    d_up = np.stack([cv2.resize(np.where(m, d, np.float32(np.nan)), size_wh, interpolation=cv2.INTER_NEAREST)
+                     for d, m in zip(disp, mask)])
+    valid = np.isfinite(d_up) & mask_up
+    invalid = mask_up & ~valid
+    todo = invalid.any(axis=(1, 2)) & valid.any(axis=(1, 2))
+    return int(invalid[todo].sum()), int(todo.sum()) * size_wh[0] * size_wh[1]
+
+
 @pytest.mark.parametrize("fine,coarse", LEVEL_PAIRS)
 def test_init_on_tensors_equals_the_numpy_init(fine, coarse):
     """The init the estimator runs on its device, here on CPU tensors, gives
-    the numpy init's bits (NaN positions included) and the same in-mask
-    holes filled and pixels swept."""
+    the JAX package's init's bits (NaN positions included), and counts the
+    in-mask holes and the maps' pixels that the inputs give."""
     disp, mask, mask_up, bg = _init_case(fine, coarse, fine[0])
-    want, holes, swept = pipeline._upsample_fg(disp, mask, mask_up, bg, fine)
+    want = _jax_init(disp, mask, mask_up, bg, fine)
+    holes, swept = _holes_and_swept(disp, mask, mask_up, fine)
     got, got_holes, got_swept = pipeline._upsample_fg_tensors(
         *(torch.from_numpy(a) for a in (disp, mask, mask_up, bg)), fine)
     assert got.dtype == torch.float32 and got.shape == (7, fine[1], fine[0])
@@ -183,9 +209,9 @@ def test_init_on_tensors_skips_the_chamfer_where_no_map_has_a_hole(monkeypatch):
     mask_up[2] = True  # and one map with no valid pixel
     got, holes, swept = pipeline._upsample_fg_tensors(*(torch.from_numpy(a) for a in (disp, mask, mask_up, bg)),
                                                       (40, 30))
-    want = pipeline._upsample_fg(disp, mask, mask_up, bg, (40, 30))
-    np.testing.assert_array_equal(got.numpy().view(np.int32), want[0].view(np.int32))
-    assert (holes, swept) == (want[1], want[2]) == (0, 0)
+    want = _jax_init(disp, mask, mask_up, bg, (40, 30))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert (holes, swept) == _holes_and_swept(disp, mask, mask_up, (40, 30)) == (0, 0)
 
 
 def test_init_on_the_cpu_calls_the_host_chamfer(monkeypatch):

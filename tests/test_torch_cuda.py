@@ -517,10 +517,12 @@ def _fg_init_inputs(dev, fine, coarse, seed):
 
 def test_2k_foreground_init_on_the_card_equals_the_host(dev):
     """Level 0 of sphere16fg (1024x768 -> 2048x1536, 16 maps): the init on
-    the card (one chamfer launch) gives the host path's array byte for byte
-    and the same counts."""
+    the card (one chamfer launch) gives the array of the same init on CPU
+    tensors (the chamfer's plain twin) byte for byte and the same counts."""
     disp, mask, mask_up, bg = _fg_init_inputs(dev, (2048, 1536), (1024, 768), 0)
-    want, holes, swept = pipeline._upsample_fg(disp, mask, mask_up, bg, (2048, 1536))
+    want, holes, swept = pipeline._upsample_fg_tensors(
+        *(torch.from_numpy(a) for a in (disp, mask, mask_up, bg)), (2048, 1536))
+    want = want.numpy()
     wc.reset_launch_counts()
     got, got_holes, got_swept = pipeline._upsample_fg_tensors(
         *(torch.from_numpy(a).to(dev) for a in (disp, mask, mask_up, bg)), (2048, 1536))
@@ -533,8 +535,8 @@ def test_derp_cli_foreground_pyramid_on_the_card_equals_the_host_init(dev, tmp_p
     """A 16-camera, three-level derp_cli --use_foreground_masks on the card
     launches the chamfer once a level below the coarsest (one launch a
     load_coarser_disparity) and writes the PFMs, at every level, that the
-    same run writes with the init made on the host (the numpy path) and
-    copied to the card."""
+    same run writes with the init made on CPU copies of its inputs (the
+    chamfer's plain twin) and copied to the card."""
     from facebook360_dep_tpu_torch.cli import derp_cli
     from facebook360_dep_tpu_torch.core import imagetypes, io
 
@@ -569,9 +571,11 @@ def test_derp_cli_foreground_pyramid_on_the_card_equals_the_host_init(dev, tmp_p
     assert {k: v for k, v in wc.LAUNCHES_BY_SHAPE.items() if k[0] == "chamfer"} == {
         ("chamfer", 72, 96): 1, ("chamfer", 48, 64): 1}
 
+    init_on_tensors = pipeline._upsample_fg_tensors
+
     def host_init(disp, mask, mask_up, bg, size_wh):
-        up, holes, swept = pipeline._upsample_fg(*(t.cpu().numpy() for t in (disp, mask, mask_up, bg)), size_wh)
-        return torch.from_numpy(up).to(disp.device), holes, swept
+        up, holes, swept = init_on_tensors(*(t.cpu() for t in (disp, mask, mask_up, bg)), size_wh)
+        return up.to(disp.device), holes, swept
 
     monkeypatch.setattr(pipeline, "_upsample_fg_tensors", host_init)
     wc.reset_launch_counts()

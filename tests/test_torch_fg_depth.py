@@ -126,10 +126,11 @@ def _random_valid(rng, h, w, kind):
 
 @pytest.mark.parametrize("kind", ["sparse", "half", "dense", "blobs"])
 def test_nearest_valid_index_matches_opencv_labels(kind):
-    """The port's numpy chamfer (two raster passes of OpenCV's 5x5 L2 mask,
-    first of equal candidates kept) against cv2.distanceTransformWithLabels
-    through the JAX function: identical nearest pixels (0 differ) and
-    identical distances, on several masks of several sizes."""
+    """The port's plain chamfer (two raster passes of OpenCV's 5x5 L2 mask,
+    first of equal candidates kept), through pipeline._nearest_valid_index,
+    against cv2.distanceTransformWithLabels through the JAX function:
+    identical nearest pixels (0 differ) and identical distances, on several
+    masks of several sizes."""
     rng = np.random.RandomState(len(kind))
     for h, w in ((37, 53), (60, 80), (5, 9)):
         valid = _random_valid(rng, h, w, kind)

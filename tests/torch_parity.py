@@ -4,12 +4,21 @@ Inputs are made with numpy from a seed and cast to float32 on both sides
 (tests/conftest.py turns on JAX x64, so a float64 array would run the
 reference in float64). Tier-1 runs several pytest workers, so each test
 process keeps torch to two threads.
+
+In a process that also holds JAX's CPU runtime, as a test process does, the
+first MKL VML call that each of torch's OpenMP threads makes (torch's CPU
+``sqrt``, ``exp``, ``log``, ``sin`` and more of float tensors large enough
+to be split over the threads) sometimes comes out at low accuracy, up to
+~3e-4 relative on the second thread's share; every later call on that
+thread is exact. So one such call on both threads is made here and its
+result dropped. The port's own processes never load JAX.
 """
 
 import numpy as np
 import torch
 
 torch.set_num_threads(2)
+torch.exp(torch.zeros(1 << 14))
 
 TYPES = ["FTHETA", "RECTILINEAR", "EQUISOLID", "ORTHOGRAPHIC"]
 # nonzero radial distortion per camera type, within each model's monotone range
