@@ -111,30 +111,57 @@ def _cv2_imread(path: str) -> np.ndarray:
     return img
 
 
-def read_color(path) -> np.ndarray:
-    """Load a color image as float32 RGB(A) in [0,1], shape (H, W, C): PNG
-    through :mod:`.png`; JPEG and TIFF through OpenCV as the JAX package
-    reads them (BGR(A) -> RGB(A), integers scaled by the dtype's maximum)."""
+def _rgb_samples(path) -> np.ndarray:
+    """A color image's samples, before the scale to [0,1], in the channel
+    order :func:`read_color` returns: (H, W, C) RGB(A), gray(+alpha)
+    expanded to RGB(A). PNG through :mod:`.png`; JPEG and TIFF through
+    OpenCV, BGR(A) reordered and a gray (H, W) image expanded."""
     path = str(path)
     if os.path.splitext(path)[1].lower() in _CV2_EXTS:
         img = _cv2_imread(path)
-        if img.dtype in (np.uint8, np.uint16):
-            img = img.astype(np.float32) / np.float32(np.iinfo(img.dtype).max)
-        else:
-            img = img.astype(np.float32)
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         if img.shape[-1] >= 3:
             img = img[..., [2, 1, 0] + ([3] if img.shape[-1] == 4 else [])]
-        return np.ascontiguousarray(img)
+        return img
     if not path.endswith(".png"):
         raise NotImplementedError(f"color images are read from PNG, JPEG or TIFF: {path}")
     img = read_png(path)
-    scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
-    img = img.astype(np.float32) / scale
     if img.shape[-1] in (1, 2):  # gray(+alpha) -> RGB(A)
         img = np.concatenate([np.repeat(img[..., :1], 3, axis=-1), img[..., 1:]], axis=-1)
-    return np.ascontiguousarray(img)
+    return img
+
+
+def _unit_scale(dtype):
+    """The float32 divisor that maps integer samples to [0,1]; None for float samples."""
+    return np.float32(np.iinfo(dtype).max) if dtype in (np.uint8, np.uint16) else None
+
+
+def read_color(path) -> np.ndarray:
+    """Load a color image as float32 RGB(A) in [0,1], shape (H, W, C): PNG
+    through :mod:`.png`; JPEG and TIFF through OpenCV as the JAX package
+    reads them (BGR(A) -> RGB(A), integers scaled by the dtype's maximum)."""
+    img = _rgb_samples(path)
+    scale = _unit_scale(img.dtype)
+    out = img.astype(np.float32)
+    return np.ascontiguousarray(out if scale is None else out / scale)
+
+
+def read_color_into(path, out: np.ndarray) -> None:
+    """Write ``read_color(path)[..., :3]``, bit for bit, into ``out``: a
+    float32 (H, W, 3) array, such as one camera's slot of a level's stack.
+    Integer samples are cast and divided straight into ``out``, with no
+    float copy of the image between. Raises ValueError, naming the path,
+    where the image's size is not ``out``'s."""
+    img = _rgb_samples(path)[..., :3]
+    if img.shape != out.shape:
+        raise ValueError(f"{path}: {img.shape[1]}x{img.shape[0]} with {img.shape[2]} color channels, "
+                         f"where the level's {out.shape[1]}x{out.shape[0]} RGB is expected")
+    scale = _unit_scale(img.dtype)
+    if scale is None:
+        out[...] = img
+    else:
+        np.divide(img, scale, out=out, dtype=np.float32)
 
 
 def write_color(path, img: np.ndarray, bit_depth: int = 8) -> None:

@@ -111,6 +111,18 @@ def _samples(raw: np.ndarray, h: int, w: int, c: int, depth: int) -> np.ndarray:
     return unpacked.reshape(h, -1)[:, :w * c].reshape(h, w, c)
 
 
+def _passes(w: int, h: int, c: int, depth: int, interlace: int):
+    """(x0, y0, dx, dy, width, height, filtered bytes) of each stored
+    (sub)image: the whole image, or the non-empty Adam7 passes (an empty
+    pass has no rows, not even filter bytes)."""
+    out = []
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:
+            out.append((x0, y0, dx, dy, pw, ph, ph * (1 + (pw * c * depth + 7) // 8)))
+    return out
+
+
 def decode(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, C) uint8/uint16 array as ``cv2.imread(...,
     IMREAD_UNCHANGED)`` gives it, with the channels in stored (gray/RGB/RGBA)
@@ -125,17 +137,18 @@ def decode(data: bytes) -> np.ndarray:
             plte = body
         elif kind == b"tRNS":
             trns = body
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _passes(w, h, c, depth, interlace)
+    stream = b"".join(idat)
+    # the filtered size is only the inflate's first buffer, so the output is the same; deflate
+    # expands at most 1032-fold, which bounds the buffer where a corrupt header claims more
+    size = min(sum(p[-1] for p in passes), 1032 * len(stream) + 1024)
+    raw = np.frombuffer(zlib.decompress(stream, 15, max(1, size)), np.uint8)
     if not interlace:
         img = _samples(raw, h, w, c, depth)
     else:
         img = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
         pos = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
-            if pw == 0 or ph == 0:
-                continue  # an empty pass has no rows, not even filter bytes
-            size = ph * (1 + (pw * c * depth + 7) // 8)
+        for x0, y0, dx, dy, pw, ph, size in passes:
             img[y0::dy, x0::dx] = _samples(raw[pos:pos + size], ph, pw, c, depth)
             pos += size
     if ctype == 3:

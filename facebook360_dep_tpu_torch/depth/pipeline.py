@@ -29,10 +29,19 @@ pixel) and ``derp.fg.chamfer_px`` (pixels the chamfer swept). The same
 spans time every run, traced or not: ``level_seconds`` and the per-frame
 log line's split (io, copies, setup, search, filters, and the counters
 where any ran) come from them.
+
+A frame job's per-camera files (the colors, masks and plate, the coarser
+level's PFMs and the PFMs written) are read and written on the
+estimator's pool of host threads, at most one a core the process may run
+on (``io_workers``): the inflate, the native unfilter and numpy's casts
+release the interpreter lock. Each call waits for all its files; its
+span stays in the calling thread, around the whole call. The counter
+``derp.pool.files`` adds the files a frame and level handed the pool.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import os
 import time
@@ -202,13 +211,21 @@ def _nearest_valid_index(valid: np.ndarray):
     return d, (np.where(lab >= 0, lab // w, -1), np.where(lab >= 0, lab % w, -1))
 
 
+def _write_disparity(path, disparity):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    io.write_disparity(path, disparity)
+
+
 class DepthEstimator:
     """Loads rig + pyramid metadata once; estimates disparity per frame/level.
 
     ``level_seconds`` holds each level's wall time (all frames, outputs
     written) after :meth:`run`, the duration of its ``derp level N`` span;
     ``spans`` (a :class:`..core.spans.Record`) every span's nanoseconds by
-    (frame, level). ``device`` None means the card.
+    (frame, level). ``device`` None means the card. ``io_workers`` is the
+    most host threads its pool runs: the cores the process may run on. The
+    pool starts with the first pooled call and is shut down when
+    :meth:`run` ends.
     """
 
     def __init__(self, opts: DepthEstimatorOptions, *, device=None):
@@ -232,6 +249,11 @@ class DepthEstimator:
             self.level_start = opts.level_start if opts.level_start >= 0 else self.num_levels - 1
             self.level_end = self._resolve_level_end()
         self.level_seconds: dict[int, float] = {}
+        self.io_workers = len(os.sched_getaffinity(0))
+        self._pool = None
+        self._pool_files = 0  # files handed to the pool since the last derp.pool.files count
+        log.info("estimator: levels %d down to %d of %d, %d destinations, %d host IO threads",
+                 self.level_start, self.level_end, self.num_levels, len(self.rig_dst.ids), self.io_workers)
 
     def _resolve_level_end(self) -> int:
         """Largest level whose width fits the requested resolution (DerpCLI.cpp:159-178)."""
@@ -244,13 +266,37 @@ class DepthEstimator:
 
     # ---- per level/frame IO -------------------------------------------------
 
+    def _on_pool(self, fn, paths, *rest) -> list:
+        """``[fn(path, *r) for path, *r in zip(paths, *rest)]``, the calls on
+        the estimator's pool of host threads. Waits for every call; then the
+        first failure in the order of ``paths`` raises as it was raised,
+        with a note naming its path, and no result is returned."""
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(self.io_workers, thread_name_prefix="derp-io")
+        futures = [self._pool.submit(fn, p, *r) for p, *r in zip(paths, *rest)]
+        self._pool_files += len(futures)
+        concurrent.futures.wait(futures)
+        for path, f in zip(paths, futures):
+            e = f.exception()
+            if e is not None:
+                e.add_note(f"reading or writing {path}")
+                raise e
+        return [f.result() for f in futures]
+
+    def _level_paths(self, root, level, rig, frame) -> list:
+        return [io.frame_path(os.path.join(str(root), f"level_{level}", cam_id), frame) for cam_id in rig.ids]
+
     def _load_level_images(self, root, level, rig, frame, loader):
-        return np.stack([loader(io.frame_path(os.path.join(str(root), f"level_{level}", cam_id), frame))
-                         for cam_id in rig.ids])
+        return np.stack(self._on_pool(loader, self._level_paths(root, level, rig, frame)))
 
     def load_colors(self, level, frame) -> np.ndarray:
-        imgs = self._load_level_images(self.opts.color, level, self.rig_src, frame, io.read_color)
-        return imgs[..., :3]
+        """(N, H, W, 3) float32 RGB of the level's sources, each camera's
+        decoded into its slot of the stack (``io.read_color_into``)."""
+        paths = self._level_paths(self.opts.color, level, self.rig_src, frame)
+        w, h = io.image_size(paths[0])
+        out = np.empty((len(paths), h, w, 3), np.float32)
+        self._on_pool(io.read_color_into, paths, out)
+        return out
 
     def load_fg_masks(self, level, frame, rig) -> np.ndarray:
         return self._load_level_images(self.opts.foreground_masks, level, rig, frame, io.read_mask)
@@ -266,11 +312,9 @@ class DepthEstimator:
         formats = {f for f in self.opts.output_formats.split(",") if f}
         formats.add("pfm")  # always save PFM (Derp.cpp:930-937)
         disp = np.asarray(result["disparity"])
-        for i, cam_id in enumerate(self.rig_dst.ids):
-            for ext in sorted(formats):
-                path = self._disparity_path(level, cam_id, frame, ext)
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                io.write_disparity(path, disp[i])
+        exts = sorted(formats)
+        paths = [self._disparity_path(level, cam_id, frame, ext) for cam_id in self.rig_dst.ids for ext in exts]
+        self._on_pool(_write_disparity, paths, [d for d in disp for _ in exts])
 
     def check_coverage(self, level, frame, result, fov_masks):
         """Insufficient-coverage policy at the brute-force level
@@ -383,8 +427,8 @@ class DepthEstimator:
         after it the counters ``derp.fg.hole_px`` and ``derp.fg.chamfer_px``
         add what it filled and swept."""
         with span("derp.io.read_coarser"):
-            coarse = [io.read_disparity(self._disparity_path(level + 1, cam_id, frame, "pfm"))
-                      for cam_id in self.rig_dst.ids]
+            coarse = self._on_pool(io.read_disparity, [self._disparity_path(level + 1, cam_id, frame, "pfm")
+                                                       for cam_id in self.rig_dst.ids])
         if not self.opts.use_foreground_masks:
             with span("derp.stage.setup"):
                 return torch.stack([upsample_disparity_init(torch.from_numpy(c).to(self.device), size_wh)
@@ -428,12 +472,17 @@ class DepthEstimator:
     @torch.inference_mode()
     def _run_levels(self):
         total = 0.0
-        for level in range(self.level_start, self.level_end - 1, -1):
-            with self.spans.at(None, level), span(f"derp level {level}") as s:
-                self._run_level(level)
-            self.level_seconds[level] = s.ns / 1e9
-            total += self.level_seconds[level]
-            log.info("-- Elapsed time: %.2fs", total)
+        try:
+            for level in range(self.level_start, self.level_end - 1, -1):
+                with self.spans.at(None, level), span(f"derp level {level}") as s:
+                    self._run_level(level)
+                self.level_seconds[level] = s.ns / 1e9
+                total += self.level_seconds[level]
+                log.info("-- Elapsed time: %.2fs", total)
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
         log.info("-- TOTAL: %.2fs", total)
 
     def _run_level(self, level):
@@ -470,6 +519,7 @@ class DepthEstimator:
                      counts)
 
     def _run_frame(self, level, frame, cfg, fov_masks, fov_np):
+        self._pool_files = 0
         with span("derp.io.read_colors"):
             colors_np = self.load_colors(level, frame)
         fg = bg = None
@@ -516,3 +566,5 @@ class DepthEstimator:
             if self.opts.save_debug_images:
                 self.save_debug_images(level, frame, result, fov_np)
             self.plot_matches(level, frame, result, colors_np)
+        # counted outside the spans, where a profiler's range of the count opens inside no span
+        count("derp.pool.files", self._pool_files)

@@ -589,6 +589,51 @@ def test_derp_cli_foreground_pyramid_on_the_card_equals_the_host_init(dev, tmp_p
             assert card == host, (level, cam_id)
 
 
+def test_2k_frame_job_same_pfms_with_one_io_thread_and_the_hosts(dev, tmp_path, monkeypatch):
+    """A 16-camera sphere16 frame job on the card (2048x1536, ten levels):
+    the estimator's pool of one host thread and of the host's cores writes
+    the same PFMs at every level, and ``derp.pool.files`` counts the files
+    of each level: 16 colors read, 16 PFMs written, and 16 coarser PFMs
+    read below the coarsest level."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from facebook360_dep_tpu_torch.cli import derp_cli
+    from facebook360_dep_tpu_torch.core import imagetypes, io
+
+    widths = (2048, 1024, 512, 256, 200, 128, 100, 80, 60, 50)
+    sizes = [(w, (3 * w + 2) // 4) for w in widths]
+    rig = synthetic.make_test_rig(16, sizes[0], ring_radius=0.3)
+    root = str(tmp_path / "project")
+
+    def write(level, cam_id, color):
+        d = imagetypes.image_dir(root, "color_levels", level, cam_id)
+        os.makedirs(d, exist_ok=True)
+        io.write_color(os.path.join(d, "000000.png"), color, bit_depth=16)
+
+    with ThreadPoolExecutor(8) as pool:
+        for level, size in enumerate(sizes):
+            colors = synthetic.render_sphere_scene(rig, size, radius=5.0, device=dev)[0].cpu().numpy()
+            list(pool.map(write, [level] * 16, rig.ids, colors))
+    os.makedirs(os.path.join(root, "rigs"))
+    tcam.save_rig(os.path.join(root, "rigs/rig_calibrated.json"), rig)
+    argv = ["--input_root", root, "--min_depth_m", "1", "--max_depth_m", "100", "--resolution", "2048"]
+
+    host_cores = len(os.sched_getaffinity(0))
+    outs = {}
+    for cores in (1, host_cores):
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid, n=cores: set(range(n)))
+        outs[cores] = str(tmp_path / f"out{cores}")
+        est = derp_cli.main(argv + ["--output_root", outs[cores]], device=dev)
+        assert est.io_workers == cores
+        assert {lv: est.spans.counts[("000000", lv)]["derp.pool.files"] for lv in range(10)} == {
+            lv: 16 * (2 if lv == 9 else 3) for lv in range(10)}
+    for level in range(10):
+        for cam_id in rig.ids:
+            one, many = (open(imagetypes.gen_filename(outs[n], "disparity_levels", level, cam_id, "000000", "pfm"),
+                              "rb").read() for n in (1, host_cores))
+            assert one == many, (level, cam_id)
+
+
 @pytest.mark.parametrize("depth_scale", [1.0, 0.5])
 def test_convert_depth_on_the_card_equals_cpu(dev, tmp_path, depth_scale):
     """The publish path's device stages (depth, its nearest resizes, the

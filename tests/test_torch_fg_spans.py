@@ -1,8 +1,9 @@
 """The foreground pass's spans and counters (core/spans.py, depth/pipeline.py):
 ``derp.io.read_fg`` and ``derp.stage.fg_init`` are leaves inside their level
 ranges and open only with ``--use_foreground_masks``; the counters
-``derp.fg.mask_px``, ``derp.fg.hole_px`` and ``derp.fg.chamfer_px`` equal
-hand counts on a hand-made pair of masks; ``count`` opens a range only
+``derp.fg.mask_px``, ``derp.fg.hole_px`` and ``derp.fg.chamfer_px``, and
+the estimator pool's ``derp.pool.files``, equal hand counts on a hand-made
+pair of masks; ``count`` opens a range only
 while a profiler runs. On a 4-camera project of two levels, 16x12 and 8x6,
 written by the port."""
 
@@ -22,7 +23,7 @@ LEVELS = {0: (16, 12), 1: (8, 6)}
 ARGS = ["--min_depth_m", "1.0", "--max_depth_m", "100.0", "--resolution", "16"]
 FG = ["--use_foreground_masks", "true"]
 NEW_SPANS = {"derp.io.read_fg", "derp.stage.fg_init"}
-COUNTERS = ("derp.fg.mask_px", "derp.fg.hole_px", "derp.fg.chamfer_px")
+COUNTERS = ("derp.fg.mask_px", "derp.fg.hole_px", "derp.fg.chamfer_px", "derp.pool.files")
 
 
 def _masks():
@@ -37,9 +38,11 @@ def _masks():
 
 
 # the hand counts: in-mask pixels a level; at level 0 the 6 holes of each of cameras 0-2, and those three
-# maps chamfered (camera 3 has no mask there, so nothing to fill)
-HAND = {1: {"derp.fg.mask_px": 4 * 12},
-        0: {"derp.fg.mask_px": 3 * 6 * 9, "derp.fg.hole_px": 3 * 6, "derp.fg.chamfer_px": 3 * 16 * 12}}
+# maps chamfered (camera 3 has no mask there, so nothing to fill); the files through the estimator's pool:
+# each of the 4 cameras' color, mask, plate and PFM written, and at level 0 its coarser PFM and mask besides
+HAND = {1: {"derp.fg.mask_px": 4 * 12, "derp.pool.files": 4 * 4},
+        0: {"derp.fg.mask_px": 3 * 6 * 9, "derp.fg.hole_px": 3 * 6, "derp.fg.chamfer_px": 3 * 16 * 12,
+            "derp.pool.files": 4 * 6}}
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +164,9 @@ def test_new_spans_and_counters_only_with_masks(project, tmp_path):
     est, _, lines = _run(project, str(tmp_path), [], False)
     for key, names in est.spans.ns.items():
         assert not set(names) & NEW_SPANS, key
-    assert not any(est.spans.counts.values())
+    # without masks the pool's count alone: 4 colors read and 4 PFMs written a level, 4 coarser PFMs read at 0
+    assert {key: c for key, c in est.spans.counts.items() if c} == {
+        ("000000", 1): {"derp.pool.files": 4 * 2}, ("000000", 0): {"derp.pool.files": 4 * 3}}
     assert not any("derp.fg." in line for line in lines)
 
 

@@ -28,6 +28,9 @@ EXPECTED = {
     1: COMMON | {"derp.io.read_coarser", "derp.stage.proposals", "derp.stage.ping_pong", "derp.stage.mismatches"},
     0: COMMON | {"derp.io.read_coarser", "derp.stage.proposals", "derp.stage.ping_pong", "derp.stage.mismatches"},
 }
+# files through the estimator's pool a level: 4 colors read and 4 PFMs written, and 4 coarser PFMs read
+# below the coarsest level
+POOL_FILES = {2: 8, 1: 12, 0: 12}
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +102,19 @@ def test_spans_inside_their_level_ranges(profiled):
     est, ranges, _ = profiled
     levels = _levels(ranges)
     assert sorted(levels) == [0, 1, 2]
-    program = [(n, s, e) for n, s, e in ranges if not n.startswith("derp level ")]
+    program = [(n, s, e) for n, s, e in ranges if not n.startswith("derp level ") and "=" not in n]
     assert all(n.startswith("derp.") and n != "depbench job" for n, _, _ in program)
+    # the one counter's range a frame and level: derp.pool.files=<files read and written>, inside its level
+    # and in no span
+    counted = {}
+    for n, s, e in ranges:
+        if "=" in n:
+            name, v = n.split("=")
+            inside = [lv for lv, (lo, hi) in levels.items() if lo <= s and e <= hi]
+            assert name == "derp.pool.files" and len(inside) == 1, (n, s, e)
+            assert not any(s0 < s < e0 for _, s0, e0 in program), n
+            counted[inside[0]] = counted.get(inside[0], 0) + int(v)
+    assert counted == POOL_FILES == {lv: est.spans.counts[("000000", lv)]["derp.pool.files"] for lv in levels}
     found = {lv: set() for lv in levels}
     for n, s, e in program:
         inside = [lv for lv, (lo, hi) in levels.items() if lo <= s and e <= hi]
@@ -131,7 +145,8 @@ def test_log_line_keeps_log_readers_level_seconds(profiled):
     for level, line in frame_lines.items():
         m = pattern.search(line)
         assert m and float(m.group(1)) == pytest.approx(est.spans.wall[("000000", level)] / 1e9, abs=0.006)
-        assert line.endswith("s)") and all(f"{g} " in line for g in spans.GROUPS)
+        assert line.endswith(f"s; derp.pool.files {POOL_FILES[level]})")
+        assert all(f"{g} " in line for g in spans.GROUPS)
     metrics, progress = {}, {}
     for line in lines:
         log_reader.scan_line(line, metrics, progress)
