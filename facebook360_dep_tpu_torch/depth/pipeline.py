@@ -25,7 +25,9 @@ and ``derp.coverage``; ``derp.init`` lies before the levels. With
 maps' and masks' copies to the device, is ``derp.stage.fg_init``,
 and three counters add up, a frame and level: ``derp.fg.mask_px`` (in-mask
 pixels), ``derp.fg.hole_px`` (in-mask holes filled from the nearest valid
-pixel) and ``derp.fg.chamfer_px`` (pixels the chamfer swept). The same
+pixel) and ``derp.fg.chamfer_px`` (pixels the chamfer swept). Where the
+mismatch stage runs (``--mismatches_start_level``), the counter
+``derp.mismatch.replaced_px`` adds the pixels it replaced. The same
 spans time every run, traced or not: ``level_seconds`` and the per-frame
 log line's split (io, copies, setup, search, filters, and the counters
 where any ran) come from them.
@@ -557,6 +559,9 @@ class DepthEstimator:
         result = solver.process_level(ctx, cfg, init_disparity=init)
         with span("derp.readback"):
             result = {k: v.cpu().numpy() for k, v in result.items()}
+        if solver.runs_mismatches(cfg):
+            # the pixels the mismatch stage replaced, from the mask read back with the maps
+            count("derp.mismatch.replaced_px", np.count_nonzero(result["mismatches"]))
         if level == self.num_levels - 1 or init is None:
             # brute force ran: enforce the coverage policy
             with span("derp.coverage"):

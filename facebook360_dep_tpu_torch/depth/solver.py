@@ -375,6 +375,12 @@ def ping_pong(ctx: LevelContext, cfg: SolverConfig, disparity, costs, confidence
 MISMATCH_CHUNK_ELEMENTS = 1 << 25
 
 
+def runs_mismatches(cfg: SolverConfig) -> bool:
+    """Whether :func:`process_level` runs the mismatch stage at ``cfg.level``:
+    below the coarsest level, from ``mismatches_start_level`` down to 0."""
+    return cfg.level != cfg.num_levels - 1 and 0 <= cfg.level <= cfg.mismatches_start_level
+
+
 def handle_mismatches(ctx: LevelContext, cfg: SolverConfig, disparity, full_disparity=None):
     """Cross-camera consistency of every dst camera at once
     (Derp.cpp:553-748): project each dst pixel's depth into every other
@@ -513,7 +519,7 @@ def process_level(ctx: LevelContext, cfg: SolverConfig, init_disparity=None, uni
                 ctx, cfg, disparity, costs, confidences, uniforms=uniforms, generator=generator)
         with span("derp.stage.ping_pong"):
             disparity, costs, confidences = ping_pong(ctx, cfg, disparity, costs, confidences)
-        if 0 <= cfg.level <= cfg.mismatches_start_level:
+        if runs_mismatches(cfg):
             with span("derp.stage.mismatches"):
                 full = None if gather is None else gather(disparity)
                 disparity, mismatch_mask = handle_mismatches(ctx, cfg, disparity, full)

@@ -31,6 +31,9 @@ EXPECTED = {
 # files through the estimator's pool a level: 4 colors read and 4 PFMs written, and 4 coarser PFMs read
 # below the coarsest level
 POOL_FILES = {2: 8, 1: 12, 0: 12}
+# the counters a frame and level may open; the mismatch stage's only at the levels where it runs
+COUNTERS = ("derp.pool.files", "derp.mismatch.replaced_px")
+MISMATCH_LEVELS = (1, 0)
 
 
 @pytest.fixture(scope="module")
@@ -104,17 +107,22 @@ def test_spans_inside_their_level_ranges(profiled):
     assert sorted(levels) == [0, 1, 2]
     program = [(n, s, e) for n, s, e in ranges if not n.startswith("derp level ") and "=" not in n]
     assert all(n.startswith("derp.") and n != "depbench job" for n, _, _ in program)
-    # the one counter's range a frame and level: derp.pool.files=<files read and written>, inside its level
-    # and in no span
-    counted = {}
+    # the counters' ranges a frame and level: derp.pool.files=<files read and written> at every level and
+    # derp.mismatch.replaced_px=<pixels replaced> where the mismatch stage ran, each inside its level and
+    # in no span
+    counted = {name: {} for name in COUNTERS}
     for n, s, e in ranges:
         if "=" in n:
             name, v = n.split("=")
             inside = [lv for lv, (lo, hi) in levels.items() if lo <= s and e <= hi]
-            assert name == "derp.pool.files" and len(inside) == 1, (n, s, e)
+            assert name in COUNTERS and len(inside) == 1, (n, s, e)
             assert not any(s0 < s < e0 for _, s0, e0 in program), n
-            counted[inside[0]] = counted.get(inside[0], 0) + int(v)
-    assert counted == POOL_FILES == {lv: est.spans.counts[("000000", lv)]["derp.pool.files"] for lv in levels}
+            counted[name][inside[0]] = counted[name].get(inside[0], 0) + int(v)
+    counts = {lv: est.spans.counts[("000000", lv)] for lv in levels}
+    assert counted["derp.pool.files"] == POOL_FILES == {lv: counts[lv]["derp.pool.files"] for lv in levels}
+    assert counted["derp.mismatch.replaced_px"] == {lv: counts[lv]["derp.mismatch.replaced_px"]
+                                                    for lv in MISMATCH_LEVELS}
+    assert all("derp.mismatch.replaced_px" not in counts[lv] for lv in levels if lv not in MISMATCH_LEVELS)
     found = {lv: set() for lv in levels}
     for n, s, e in program:
         inside = [lv for lv, (lo, hi) in levels.items() if lo <= s and e <= hi]
@@ -145,7 +153,10 @@ def test_log_line_keeps_log_readers_level_seconds(profiled):
     for level, line in frame_lines.items():
         m = pattern.search(line)
         assert m and float(m.group(1)) == pytest.approx(est.spans.wall[("000000", level)] / 1e9, abs=0.006)
-        assert line.endswith(f"s; derp.pool.files {POOL_FILES[level]})")
+        assert line.endswith(f"; derp.pool.files {POOL_FILES[level]})")
+        replaced = est.spans.counts[("000000", level)].get("derp.mismatch.replaced_px")
+        assert (f"s; derp.mismatch.replaced_px {replaced}; derp.pool.files" in line if level in MISMATCH_LEVELS
+                else line.endswith(f"s; derp.pool.files {POOL_FILES[level]})"))
         assert all(f"{g} " in line for g in spans.GROUPS)
     metrics, progress = {}, {}
     for line in lines:
